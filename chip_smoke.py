@@ -17,9 +17,14 @@ card.
         case on int16 tables;
      K3 SAO: 4K luma and chroma planes with the mode/aux/offs maps of the
         ld4k_light IDR (plan_sao_compact);
-     K4 intra scan: the whole intra_cif_q30 IDR (plus the same inputs
-        with availability holes), and the first 2 CTB-row bands of the
-        ld4k_light IDR;
+     K4 intra scan (the CTB-row band wavefront): the whole intra_cif_q30
+        IDR (plus the same inputs with availability holes), the whole
+        ld4k_light IDR and the IDR of p_tiles4_1080p_mv (slots in tile
+        scan), both plane groups each: the plain version once, then a
+        warm-up and 20 timed launches, every one compared exactly with
+        the plain output (a race between bands would show there); each
+        case logs its critical path in TU steps (band_waits) beside its
+        TU count, and the wrapper's band_waits time;
      K5 per-frame tile-table build, through its wrapper (a luma and a
         [Cb|Cr] launch): the reference slots that the last P frame of
         tests/data/p_tiles4_1080p_mv.bin takes from the DPB (R = 2, the
@@ -32,7 +37,7 @@ card.
    libde265_tpu_torch.api.decode_stream_native(data, device="cuda") with
    the launch counters zeroed just before, and requires every frame's
    per-plane MD5 to match tests/data/manifest_big.json, no frame on the
-   numpy host path, and K1 = 66, K2 = 64, K3 = 99, K4 >= 2 launches;
+   numpy host path, and K1 = 66, K2 = 64, K3 = 99, K4 = 2 launches;
 5. decodes the weighted and bi-predicted streams p_wp, adv_b_wp_2ref,
    b_mv and b_mixed the same way (counters zeroed before each), each
    MD5-checked against its manifest, and requires K2 launches in each;
@@ -456,7 +461,32 @@ def k4_bound(kw, nplanes):
     return bound(nbytes, 10 * samples + 4 * border)
 
 
+def k4_launches(k, name, planes, kw, need, want, reps):
+    """Mean CUDA-event ms of `reps` K4 kernel launches on the waits
+    `need`, each on fresh copies of the planes (the copy outside the
+    timed window) and each compared exactly with the plain output `want`:
+    a wavefront race would show as a launch that differs."""
+    import torch
+    ms, err = 0.0, 0
+    for i in range(-1, reps):                    # -1: the warm-up
+        got = [p.clone() for p in planes]
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        k._launch(got, **kw, need=need)
+        b.record()
+        torch.cuda.synchronize()
+        err = max(err, max_abs_err(got, want))
+        require_equal(f"K4 {name} launch {i}", got, want)
+        ms += a.elapsed_time(b) if i >= 0 else 0.0
+    return ms / reps, err
+
+
 def check_k4(dev, rng, cfg4k, t4k):
+    """K4 against intra_scan_plain: the intra_cif_q30 IDR (and its luma
+    with availability holes), the whole 4K IDR of the main stream and the
+    IDR of the 1080p tile stream, both plane groups each; 20 timed
+    launches per case, every one compared exactly with the plain run."""
     import torch
     from libde265_tpu_torch.intra_fused import scan_groups
     from libde265_tpu_torch.ops.kernels import intra_scan as k
@@ -469,34 +499,35 @@ def check_k4(dev, rng, cfg4k, t4k):
             kwh, nh = _holes(kw, rng)
             cases.append((f"intra_cif_q30 IDR planes {idx} + {nh} "
                           f"availability holes", cfgc, idx, kwh))
-    for idx, kw in scan_groups(t4k, cfg4k):
-        n2 = 2 * kw["K"]
-        kw2 = dict(kw, recs=kw["recs"][:n2].contiguous(),
-                   rowgs=[r[:n2].contiguous() for r in kw["rowgs"]])
-        cases.append((f"{STREAM} IDR planes {idx}, first 2 bands", cfg4k,
-                      idx, kw2))
+    _, tplans = parse(TILE_STREAM)
+    for label, (cfg, t) in ((STREAM, (cfg4k, t4k)),
+                            (TILE_STREAM, idr_inputs(tplans, dev))):
+        for idx, kw in scan_groups(t, cfg):
+            cases.append((f"{label} IDR planes {idx}", cfg, idx, kw))
     res = []
     for name, cfg, idx, kw in cases:
         dims = [(cfg.H, cfg.W)] + [(cfg.H // 2, cfg.W // 2)] * 2
         planes = [torch.as_tensor(rng.randint(0, 256, dims[i]),
                                   dtype=torch.int32, device=dev)
                   for i in idx]
-        got = [p.clone() for p in planes]
         want = [p.clone() for p in planes]
-        k.intra_scan(got, **kw)
         t0 = time.perf_counter()
         k.intra_scan_plain(want, **kw)
         torch.cuda.synchronize()
         pms = (time.perf_counter() - t0) * 1e3
-        require_equal(f"K4 {name}", got, want)
-        err = max_abs_err(got, want)
-        ntu = int(((kw["recs"] >> 27) & 1).sum())
-        ms = cuda_time(lambda: k.intra_scan([p.clone() for p in planes],
-                                            **kw), 3)
+        args = (kw["recs"], kw["K"], kw["BH"])
+        need = k.band_waits(*args)
+        ms, err = k4_launches(k, name, planes, kw, need, want, 20)
+        wms = cuda_time(lambda: k.band_waits(*args), 20)
+        nb = kw["recs"].shape[0] // kw["K"]
+        steps, ntu = k.wavefront_steps(kw["recs"], kw["K"], need)
         bnd = k4_bound(kw, len(idx))
         res.append((name, err, ms, pms, bnd))
-        log(f"K4 {name}: {ntu} TUs, equal; kernel {ms:.4f} ms, plain "
-            f"{pms:.1f} ms (one run), bound {bnd[0]:.4f} ms ({bnd[1]})")
+        log(f"K4 {name}: {ntu} TUs in {nb} bands, critical path {steps} TU "
+            f"steps; 21 launches, each equal to plain; kernel {ms:.4f} ms "
+            f"({1e3 * ms / steps:.3f} us a step), band_waits {wms:.4f} ms, "
+            f"plain {pms:.1f} ms (one run), bound {bnd[0]:.4f} ms "
+            f"({bnd[1]})")
     return res
 
 
@@ -601,9 +632,9 @@ def main():
     log(f"launches on the main path: K1 {launches[0]}, K2 {launches[1]}, "
         f"K3 {launches[2]}, K4 {launches[3]}")
     if launches[0] != 2 * nfr or launches[1] != 2 * (nfr - 1) \
-            or launches[2] != 3 * nfr or launches[3] < 2:
+            or launches[2] != 3 * nfr or launches[3] != 2:
         fail(f"kernel launches {launches}, want K1 {2 * nfr}, K2 "
-             f"{2 * (nfr - 1)}, K3 {3 * nfr}, K4 >= 2")
+             f"{2 * (nfr - 1)}, K3 {3 * nfr}, K4 2")
 
     # ---- the weighted and bi-predicted paths
     for name, manifest in EXTRA.items():
@@ -672,7 +703,7 @@ def main():
                 "max_abs_err": worst(rows), "ms": r[2], "plain_ms": r[3],
                 "bound_ms": r[4][0], "bound_by": r[4][1],
                 "library_ms": None}
-    k4_4k = [r for r in k4 if r[0].startswith(STREAM)][0]
+    k4_4k = [r for r in k4 if r[0].startswith(STREAM)]
     kernels = [
         row("K1 tile-table update (4K luma slot)", "mc_tables.cu",
             "libde265_tpu/ops/pallas/mc_tables.py:263", launches[0], k1,
@@ -683,9 +714,9 @@ def main():
         row("K3 SAO (4K luma plane)", "sao_filter.cu",
             "libde265_tpu/ops/pallas/sao_filter.py:87", launches[2], k3,
             k3[0]),
-        row("K4 intra scan (4K IDR luma, first 2 bands)", "intra_scan.cu",
-            "libde265_tpu/ops/pallas/intra_scan.py:502", launches[3], k4,
-            k4_4k),
+        *(row(f"K4 intra scan (4K IDR {grp}, whole frame)", "intra_scan.cu",
+              "libde265_tpu/ops/pallas/intra_scan.py:502", launches[3], k4,
+              r) for grp, r in zip(("luma", "Cb|Cr"), k4_4k)),
         row(f"K5 tile-table build ({k5[0][0]}, luma + Cb|Cr, 2 launches)",
             "mc_tables.cu", "libde265_tpu/ops/pallas/mc_tables.py:138",
             tln[4], k5, k5[0]),

@@ -1,11 +1,12 @@
-"""K4: serial intra reconstruction over (CTB-row band, TU slot) in decode
-order (csrc/intra_scan.cu).
+"""K4: intra reconstruction over (CTB-row band, TU slot) as a wavefront
+across bands (csrc/intra_scan.cu).
 
 Replaces libde265_tpu/ops/pallas/intra_scan.py:build_scan. `intra_scan`
-launches the CUDA kernel (one thread block per plane group) for CUDA
-tensors and runs `intra_scan_plain`, the same function in plain
-PyTorch (one TU at a time), for CPU tensors; `intra_scan.launches`
-counts kernel launches.
+launches the CUDA kernel (one thread block per band, each slot waiting
+on the band above as `band_waits` says) for CUDA tensors and runs
+`intra_scan_plain`, the same function in plain PyTorch (one TU at a
+time, in slot order), for CPU tensors; `intra_scan.launches` counts
+kernel launches.
 
 Inputs (assembled by intra_fused.intra_stage_scan from the packed plan):
   planes : 1 (luma) or 2 (Cb, Cr) (H, W) int32 planes, updated in place
@@ -24,10 +25,11 @@ import numpy as np
 import torch
 
 from ... import _build
+from ...convert import device_table
 from ..intra_ref import INTRA_PRED_ANGLE, INV_ANGLE
 
 _ARGS = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 3 \
-    + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 4
 
 
 # one packed int32 record per TU slot (ops/pallas/intra_scan.py:50-60):
@@ -98,9 +100,60 @@ def _subst_index(L, sp, ok):
     return np.where(last >= 0, last, int(np.argmax(av)))
 
 
+def band_waits(recs, K, BH):
+    """(NB*K,) int32 waits of the wavefront, on the records' device:
+    need[t] is how many of band b-1's slots (b = t // K) must be finished
+    before slot t may read the plane, 1 + the largest position p of a
+    valid slot of band b-1 whose CTB column (x // BH) is at most slot t's
+    plus one (the above-right CTB); 0 in band 0, for invalid slots, or
+    when no such slot exists. Slots need not be in column order within
+    a band (tile scan), so this is a scatter-max per (band, column) and
+    a running max over the columns. A few launches and no host round
+    trip: the frame program is bound by the host's launches."""
+    K, BH = int(K), int(BH)
+    NB = recs.shape[0] // K
+    ncol = 8192 // BH + 2                   # x has 13 bits: col + 1 fits
+    dev = recs.device
+    # band b's column maxima go to row b + 1, read by band b + 1; row 0
+    # (band -1) stays -1
+    row = device_table(("k4_rows", NB, K, ncol),
+                       np.repeat(np.arange(1, NB + 1) * ncol, K), dev)
+    pos1 = device_table(("k4_pos1", NB, K),
+                        np.tile(np.arange(1, K + 1, dtype=np.int32), NB),
+                        dev)
+    valid = (recs >> 27) & 1
+    key = row + (recs & 0x1FFF) // BH
+    last = torch.full(((NB + 1) * ncol,), -1, dtype=torch.int32, device=dev)
+    last.scatter_reduce_(0, key, pos1 * valid - 1, "amax")
+    upto = torch.cummax(last.view(NB + 1, ncol), dim=1).values.view(-1)
+    return (upto[key - (ncol - 1)] + 1) * valid
+
+
+def wavefront_steps(recs, K, need):
+    """Critical path of the wavefront in TU steps, every TU counted as
+    one step: band b's slot p finishes at f(b, p) = max(f(b, p'), f(b-1,
+    need - 1)) + 1, p' the band's previous valid slot. Returns (steps,
+    valid TUs); the serial walk takes one step per valid TU."""
+    r = recs.cpu().numpy().reshape(-1, int(K))
+    nd = need.cpu().numpy().reshape(-1, int(K)).astype(np.int64)
+    valid = ((r >> 27) & 1) != 0
+    prev = np.zeros(int(K), np.int64)       # f(b-1, p), 0 for none
+    steps = 0
+    for v, w in zip(valid, nd):
+        cnt = np.cumsum(v)
+        start = np.where(v & (w > 0), prev[np.maximum(w - 1, 0)], 0)
+        f = cnt + np.maximum.accumulate(np.where(v, start - cnt + 1, 0))
+        prev = np.where(v, f, 0)
+        prev = np.maximum.accumulate(prev)
+        steps = max(steps, int(prev[-1]))
+    return steps, int(valid.sum())
+
+
 def intra_scan_plain(planes, recs, rowgs, spans, avail, resid, log2s, K,
-                     BH, strong, luma, bitdepth=8):
-    """Plain PyTorch version of the kernel (same contract)."""
+                     BH, strong, luma, bitdepth=8, order=None):
+    """Plain PyTorch version of the kernel (same contract): one TU at a
+    time in slot order, or in the slot order `order` (a permutation of
+    the slots) where one is given."""
     maxv = (1 << bitdepth) - 1
     mid = 1 << (bitdepth - 1)
     H, W = planes[0].shape
@@ -110,7 +163,7 @@ def intra_scan_plain(planes, recs, rowgs, spans, avail, resid, log2s, K,
     rowg_h = [r.cpu().numpy() for r in rowgs]
     spans_h = spans.cpu().numpy()
     P = torch.stack(planes)                     # (np, H, W) working copy
-    for t in range(nsl):
+    for t in range(nsl) if order is None else order:
         rec = int(recs_h[t])
         if not (rec >> 27) & 1:
             continue
@@ -215,30 +268,37 @@ def intra_scan(planes, recs, rowgs, spans, avail, resid, log2s, K, BH,
         raise ValueError("intra_scan: tensors must be contiguous")
     if not (1 <= len(log2s) <= 4 and all(2 <= l <= 5 for l in log2s)):
         raise ValueError(f"intra_scan: class sizes {log2s}")
-    if resid.shape[1] < 1 << (2 * max(log2s)):
-        raise ValueError("intra_scan: residual rows shorter than n*n")
+    if resid.shape[1] < 1 << (2 * max(log2s)) or resid.shape[1] % 4 \
+            or resid.data_ptr() % 16:
+        raise ValueError("intra_scan: residual rows shorter than n*n, or "
+                         "not in whole 16-byte pieces")
     if W > 8191 or BH > 64 or not 8 <= bitdepth <= 12:
         raise ValueError("intra_scan: record fields overflow (W <= 8191, "
                          "BH <= 64, 8..12-bit)")
     _launch(planes, recs, rowgs, spans, avail, resid, log2s, K, BH, strong,
-            luma, bitdepth)
+            luma, bitdepth, band_waits(recs, K, BH))
     intra_scan.launches += 1
     return planes
 
 
 def _launch(planes, recs, rowgs, spans, avail, resid, log2s, K, BH, strong,
-            luma, bitdepth):
+            luma, bitdepth, need):
+    """The kernel launch alone, with the waits already computed."""
     H, W = planes[0].shape
+    dev = planes[0].device
     packed = sum(l << (8 * i) for i, l in enumerate(log2s))
     p1 = planes[1] if len(planes) == 2 else planes[0]
     r1 = rowgs[1] if len(rowgs) == 2 else rowgs[0]
+    # [ticket, done[0], ..., done[NB - 1]], zeroed on the current stream
+    sync = torch.zeros(1 + recs.shape[0] // K, dtype=torch.int32, device=dev)
     fn = _build.kernel_fn("k4_intra_scan", _ARGS)
-    stream = torch.cuda.current_stream(planes[0].device).cuda_stream
+    stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(planes[0].data_ptr(), p1.data_ptr(), len(planes), H, W,
              recs.data_ptr(), rowgs[0].data_ptr(), r1.data_ptr(),
              spans.data_ptr(), avail.data_ptr(), resid.data_ptr(),
              resid.shape[1], packed, recs.shape[0], K, BH, int(strong),
-             int(luma), bitdepth, stream)
+             int(luma), bitdepth, need.data_ptr(), sync.data_ptr(),
+             sync[1:].data_ptr(), stream)
     _build.check_launch("k4_intra_scan", err)
 
 
