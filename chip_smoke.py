@@ -21,10 +21,11 @@ card.
         IDR (plus the same inputs with availability holes), the whole
         ld4k_light IDR and the IDR of p_tiles4_1080p_mv (slots in tile
         scan), both plane groups each: the plain version once, then a
-        warm-up and 20 timed launches, every one compared exactly with
-        the plain output (a race between bands would show there); each
-        case logs its critical path in TU steps (band_waits) beside its
-        TU count, and the wrapper's band_waits time;
+        warm-up and 20 timed calls of the wrapper, every one compared
+        exactly with the plain output (a race between bands would show
+        there); each case logs its critical path in TU steps (band_waits)
+        beside its TU count, and the launch without band_waits and
+        band_waits alone, each timed in a window of its own;
      K5 per-frame tile-table build, through its wrapper (a luma and a
         [Cb|Cr] launch): the reference slots that the last P frame of
         tests/data/p_tiles4_1080p_mv.bin takes from the DPB (R = 2, the
@@ -461,11 +462,12 @@ def k4_bound(kw, nplanes):
     return bound(nbytes, 10 * samples + 4 * border)
 
 
-def k4_launches(k, name, planes, kw, need, want, reps):
-    """Mean CUDA-event ms of `reps` K4 kernel launches on the waits
-    `need`, each on fresh copies of the planes (the copy outside the
-    timed window) and each compared exactly with the plain output `want`:
-    a wavefront race would show as a launch that differs."""
+def k4_launches(k, name, planes, kw, want, reps):
+    """Mean CUDA-event ms of `reps` calls of K4's wrapper (its checks,
+    band_waits and the launch), each on fresh copies of the planes (the
+    copy outside the timed window) and each compared exactly with the
+    plain output `want`: a wavefront race would show as a call that
+    differs."""
     import torch
     ms, err = 0.0, 0
     for i in range(-1, reps):                    # -1: the warm-up
@@ -473,7 +475,7 @@ def k4_launches(k, name, planes, kw, need, want, reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        k._launch(got, **kw, need=need)
+        k.intra_scan(got, **kw)
         b.record()
         torch.cuda.synchronize()
         err = max(err, max_abs_err(got, want))
@@ -490,6 +492,7 @@ def check_k4(dev, rng, cfg4k, t4k):
     import torch
     from libde265_tpu_torch.intra_fused import scan_groups
     from libde265_tpu_torch.ops.kernels import intra_scan as k
+    from libde265_tpu_torch.profile_frames import wavefront_steps
     cases = []
     _, cif = parse("intra_cif_q30")
     cfgc, tc = idr_inputs(cif, dev)
@@ -515,19 +518,22 @@ def check_k4(dev, rng, cfg4k, t4k):
         k.intra_scan_plain(want, **kw)
         torch.cuda.synchronize()
         pms = (time.perf_counter() - t0) * 1e3
+        ms, err = k4_launches(k, name, planes, kw, want, 20)
         args = (kw["recs"], kw["K"], kw["BH"])
         need = k.band_waits(*args)
-        ms, err = k4_launches(k, name, planes, kw, need, want, 20)
         wms = cuda_time(lambda: k.band_waits(*args), 20)
+        got = [p.clone() for p in planes]
+        kms = cuda_time(lambda: k._launch(got, **kw, need=need), 20)
         nb = kw["recs"].shape[0] // kw["K"]
-        steps, ntu = k.wavefront_steps(kw["recs"], kw["K"], need)
+        steps, ntu = wavefront_steps(kw["recs"], kw["K"], need)
         bnd = k4_bound(kw, len(idx))
         res.append((name, err, ms, pms, bnd))
         log(f"K4 {name}: {ntu} TUs in {nb} bands, critical path {steps} TU "
-            f"steps; 21 launches, each equal to plain; kernel {ms:.4f} ms "
-            f"({1e3 * ms / steps:.3f} us a step), band_waits {wms:.4f} ms, "
-            f"plain {pms:.1f} ms (one run), bound {bnd[0]:.4f} ms "
-            f"({bnd[1]})")
+            f"steps; 21 wrapper calls, each equal to plain; wrapper "
+            f"{ms:.4f} ms ({1e3 * ms / steps:.3f} us a step); of it, in "
+            f"windows of their own, the launch without band_waits "
+            f"{kms:.4f} ms and band_waits {wms:.4f} ms; plain {pms:.1f} ms (one run), bound "
+            f"{bnd[0]:.4f} ms ({bnd[1]})")
     return res
 
 

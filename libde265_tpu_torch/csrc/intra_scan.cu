@@ -28,7 +28,8 @@
 // never available. So band b may reconstruct CTB column c once band b-1
 // has finished every slot in columns <= c+1: the two-CTB lag of WPP.
 // All bands run at once; the critical path is one band's TUs plus
-// (bands - 1) lags (band_waits / wavefront_steps in the wrapper), where
+// (bands - 1) lags (band_waits in the wrapper, wavefront_steps in
+// profile_frames.py), where
 // the serial walk took every TU of the frame in turn. A TU step is a
 // chain of latencies (shared-memory records, one L2 round trip for the
 // border, two barriers), so the design keeps that chain short:

@@ -129,26 +129,6 @@ def band_waits(recs, K, BH):
     return (upto[key - (ncol - 1)] + 1) * valid
 
 
-def wavefront_steps(recs, K, need):
-    """Critical path of the wavefront in TU steps, every TU counted as
-    one step: band b's slot p finishes at f(b, p) = max(f(b, p'), f(b-1,
-    need - 1)) + 1, p' the band's previous valid slot. Returns (steps,
-    valid TUs); the serial walk takes one step per valid TU."""
-    r = recs.cpu().numpy().reshape(-1, int(K))
-    nd = need.cpu().numpy().reshape(-1, int(K)).astype(np.int64)
-    valid = ((r >> 27) & 1) != 0
-    prev = np.zeros(int(K), np.int64)       # f(b-1, p), 0 for none
-    steps = 0
-    for v, w in zip(valid, nd):
-        cnt = np.cumsum(v)
-        start = np.where(v & (w > 0), prev[np.maximum(w - 1, 0)], 0)
-        f = cnt + np.maximum.accumulate(np.where(v, start - cnt + 1, 0))
-        prev = np.where(v, f, 0)
-        prev = np.maximum.accumulate(prev)
-        steps = max(steps, int(prev[-1]))
-    return steps, int(valid.sum())
-
-
 def intra_scan_plain(planes, recs, rowgs, spans, avail, resid, log2s, K,
                      BH, strong, luma, bitdepth=8, order=None):
     """Plain PyTorch version of the kernel (same contract): one TU at a

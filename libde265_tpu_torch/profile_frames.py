@@ -21,6 +21,8 @@ OUT_DIR/trace_strip_p.json).
     python -m libde265_tpu_torch.profile_frames --summarize TRACE REPS
 
 prints the same summary of an exported trace of REPS frames.
+`wavefront_steps` gives K4's critical path in TU steps (chip_smoke.py
+logs it beside each IDR's time).
 """
 import json
 import os
@@ -28,6 +30,7 @@ import sys
 from collections import defaultdict
 from dataclasses import replace
 
+import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
@@ -150,6 +153,27 @@ def tile_calls(plans, dev):
     slot = dec.slot_of[plan.frame_id]
     return [("strip_p", lambda: decode_frame_tiles(
         dec.replicas, dec.devices, tsh, trep, x0w, slot, dec.cfg_scan), 5)]
+
+
+def wavefront_steps(recs, K, need):
+    """Critical path of K4's wavefront in TU steps, every TU counted as
+    one step: band b's slot p finishes at f(b, p) = max(f(b, p'), f(b-1,
+    need - 1)) + 1, p' the band's previous valid slot; `need` is
+    band_waits(recs, K, BH). Returns (steps, valid TUs); the serial walk
+    takes one step per valid TU."""
+    r = recs.cpu().numpy().reshape(-1, int(K))
+    nd = need.cpu().numpy().reshape(-1, int(K)).astype(np.int64)
+    valid = ((r >> 27) & 1) != 0
+    prev = np.zeros(int(K), np.int64)       # f(b-1, p), 0 for none
+    steps = 0
+    for v, w in zip(valid, nd):
+        cnt = np.cumsum(v)
+        start = np.where(v & (w > 0), prev[np.maximum(w - 1, 0)], 0)
+        f = cnt + np.maximum.accumulate(np.where(v, start - cnt + 1, 0))
+        prev = np.where(v, f, 0)
+        prev = np.maximum.accumulate(prev)
+        steps = max(steps, int(prev[-1]))
+    return steps, int(valid.sum())
 
 
 def main(argv):

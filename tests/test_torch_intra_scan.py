@@ -227,8 +227,8 @@ def test_band_waits_match_definition(name, force_scan):
     critical path against its slot-by-slot recurrence."""
     from libde265_tpu_torch.intra_fused import scan_groups
     from libde265_tpu_torch.ops.kernels.intra_scan import (band_waits,
-                                                           pack_rec,
-                                                           wavefront_steps)
+                                                           pack_rec)
+    from libde265_tpu_torch.profile_frames import wavefront_steps
     if name == "shuffled":
         rng = np.random.RandomState(7)
         K, BH, NB = 48, 16, 5
