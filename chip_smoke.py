@@ -7,10 +7,15 @@ card.
    (one nvcc per source, in parallel, sm_90a), printing the build
    seconds;
 3. checks each kernel against its plain PyTorch version on the card,
-   requiring exact equality, and times both with CUDA events:
+   requiring exact equality, and times both with CUDA events; K1, K2
+   and K5 are timed as calls replayed from a CUDA graph (their device
+   time, without the host's enqueue of each call), and the output of
+   every timed call is compared:
      K1 tile-table update: one 4K luma and one 4K chroma slot update
         into an 8-slot table (other slots pre-filled, must stay as they
-        were);
+        were), then one timed call into each of the 8 slots; beside it
+        the library yardstick k1_library (one strided copy_ and a zero_,
+        equal to the plain version; the port never calls it);
      K2 MC: the first ld4k_light P frame's real grids over seeded random
         8-slot 4K tables (luma, then the [Cb|Cr] pair), a seeded 4K
         bi-predicted, explicitly weighted synthetic case, and a 10-bit
@@ -30,7 +35,8 @@ card.
         [Cb|Cr] launch): the reference slots that the last P frame of
         tests/data/p_tiles4_1080p_mv.bin takes from the DPB (R = 2, the
         tile path's shape), a seeded 4K stack of R = 8 frames into uint8
-        tables, and a 72x136 R = 3 stack into int16 tables;
+        tables, and a 72x136 R = 3 stack into int16 tables; beside it
+        the library yardstick k5_library;
      K2 in strip form: the first P frame of tests/data/
         p_tiles4_1080p_mv.bin, tile column 1 (x0 = 448, a 448-pixel
         column in a 512-pixel strip), over seeded random tables;
@@ -57,8 +63,9 @@ card.
 Any failure exits non-zero. The last stdout line is the JSON
 {"ok": true, "device": {...}}; the line before it is the card's name and
 power limit, and the one before that lists each kernel with its time,
-its plain version's time and its bound (the larger of its bytes over
-3.35 TB/s and its operations over the card's peak rate for them).
+its plain version's time, its bound (the larger of its bytes over
+3.35 TB/s and its operations over the card's peak rate for them) and,
+for K1 and K5, the library yardstick's time.
 
     python3 chip_smoke.py
 """
@@ -93,6 +100,14 @@ def fail(msg):
 
 def log(msg):
     print(msg, flush=True)
+
+
+def graph_ms(fn, reps):
+    """(device ms a call, outputs) of `reps` calls of fn() replayed from a
+    CUDA graph: the kernel's time without the host's enqueue of each call
+    (the outputs hold what the timed replay computed)."""
+    from libde265_tpu_torch.time_frames import graph_ms as gms
+    return gms(fn, reps)
 
 
 def cuda_time(fn, reps, warmup=1):
@@ -143,6 +158,41 @@ def idr_inputs(plans, dev):
     return cfg, plan_from_numpy(t, dev)
 
 
+def k1_library(table, padded, slot, T):
+    """K1's function as one PyTorch call, the yardstick of K1: a strided
+    copy_ of the padded planes' tiles into the slot's rows viewed as
+    (nty_p, ntx, P, T, T), and a zero_ of the ROWPAD rows. The port never
+    calls it."""
+    P, Hp, Wp = padded.shape
+    nty, ntx = (Hp - T + 4) // 4, (Wp - T + 4) // 4
+    nty_p = -(-nty // 8) * 8
+    rows = table[slot * nty_p * ntx:(slot + 1) * nty_p * ntx] \
+        .view(nty_p, ntx, P, T, T)
+    rows[:nty].copy_(padded.as_strided((nty, ntx, P, T, T),
+                                       (4 * Wp, 4, Hp * Wp, 1, Wp)))
+    rows[nty:].zero_()
+    return table
+
+
+def k5_library(py, pc, dt):
+    """K5's function (both tables) as K1's yardstick does it, over the
+    stack of R frames."""
+    import torch
+    out = []
+    for padded, T in ((py[:, None], 16), (pc, 8)):
+        R, P, Hp, Wp = padded.shape
+        nty, ntx = (Hp - T + 4) // 4, (Wp - T + 4) // 4
+        nty_p = -(-nty // 8) * 8
+        tab = torch.empty((R * nty_p * ntx, P * T * T), dtype=dt,
+                          device=py.device)
+        v = tab.view(R, nty_p, ntx, P, T, T)
+        v[:, :nty].copy_(padded.as_strided(
+            (R, nty, ntx, P, T, T), (P * Hp * Wp, 4 * Wp, 4, Hp * Wp, 1, Wp)))
+        v[:, nty:].zero_()
+        out.append(tab)
+    return out
+
+
 def check_k1(dev, rng, H=2160, W=3840):
     import torch
     from libde265_tpu_torch.ops.kernels import mc_tables as k
@@ -164,15 +214,28 @@ def check_k1(dev, rng, H=2160, W=3840):
         k.update_tile_table_plain(want, padded, 3, T)
         torch.cuda.synchronize()
         require_equal(f"K1 T={T}", [got], [want])
-        err = max_abs_err([got], [want])
-        ms = cuda_time(lambda: k.update_tile_table(got, padded, 5, T), 20)
+        # timed: one call into each slot, so every call's rows are compared
+        sl = iter(range(REF_SLOTS + 1))     # graph_ms' warm-up call first
+        ms = graph_ms(lambda: k.update_tile_table(
+            got, padded, next(sl) % REF_SLOTS, T), REF_SLOTS)[0]
         pms = cuda_time(lambda: k.update_tile_table_plain(want, padded, 5,
                                                           T), 3)
+        for sl in range(REF_SLOTS):
+            k.update_tile_table_plain(want, padded, sl, T)
+        require_equal(f"K1 T={T}, the {REF_SLOTS} timed calls", [got],
+                      [want])
+        err = max_abs_err([got], [want])
+        lib = init.clone()
+        require_equal(f"K1 T={T} library call", [k1_library(lib, padded, 3,
+                                                            T)],
+                      [k.update_tile_table_plain(init.clone(), padded, 3, T)])
+        lms = cuda_time(lambda: k1_library(lib, padded, 5, T), 20)
         # reads the padded planes once, writes one slot of table rows
         bnd = bound(padded.nbytes + nty * ntx * P * T * T, 0)
-        res.append((T, err, ms, pms, bnd))
+        res.append((T, err, ms, pms, bnd, lms))
         log(f"K1 T={T} P={P} {h}x{w}: equal; kernel {ms:.4f} ms, plain "
-            f"{pms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
+            f"{pms:.4f} ms, library (strided copy_ + zero_) {lms:.4f} ms, "
+            f"bound {bnd[0]:.4f} ms ({bnd[1]})")
     return res
 
 
@@ -207,21 +270,39 @@ def check_k3(dev, rng, cfg4k, t4k):
     return res
 
 
-def k2_bound(table, mv, slot, pf, wts, ex, inter, outs, bi):
-    """K2's bound from this call's inputs: one table row gathered per
-    inter block and list it uses, the grids read and the planes written
-    once; 792 multiply-adds per luma block and list (h-pass 56 x 11,
-    v-pass 16 x 11), 280 per [Cb|Cr] block (32 x 7 + 8 x 7)."""
-    live = inter.reshape(-1)
-    rows = int(live.sum())
-    if bi:
-        rows += int((live & (pf[:, 0] * pf[:, 1] != 0)).sum())
+def k2_bound(table, dims, mv, slot, pf, wts, ex, inter, outs, bi, x0=0):
+    """K2's bound from this call's inputs: each distinct table row that
+    an inter block gathers for a list it uses read once (neighbouring
+    chroma blocks often share a tile), the grids read and the planes
+    written once; 792 multiply-adds per luma block and list (h-pass 56 x
+    11, v-pass 16 x 11), 280 per [Cb|Cr] block (32 x 7 + 8 x 7)."""
+    import torch
+    from libde265_tpu_torch.packing import n_tiles_c, n_tiles_y
+    H, W = dims
     luma = table.shape[1] == 256
+    T, frac, off, lo = (16, 2, 3, -14) if luma else (8, 3, 1, -7)
+    (nty, ntx), (hp, wp) = ((n_tiles_y(H, W), (H, W)) if luma else
+                            (n_tiles_c(H // 2, W // 2), (H // 2, W // 2)))
+    n = torch.arange(mv.shape[0], device=mv.device)
+    bx = (n % inter.shape[1]) * 4 + x0
+    by = (n // inter.shape[1]) * 4
+    if not luma:
+        bx, by = bx >> 1, by >> 1
+    live = inter.reshape(-1)
+    use = [live, live & (pf[:, 0] * pf[:, 1] != 0)][:2 if bi else 1]
+    rows = []
+    for l, u in enumerate(use):
+        xw = torch.clamp(bx + (mv[:, l, 0] >> frac) - off, lo, wp + 1)
+        yw = torch.clamp(by + (mv[:, l, 1] >> frac) - off, lo, hp + 1)
+        rows.append(((slot[:, l] * nty + ((yw + T) >> 2)) * ntx
+                     + ((xw + T) >> 2))[u])
+    nrows = int(torch.unique(torch.cat(rows)).numel())
+    ngather = sum(int(u.sum()) for u in use)
     grids = sum(t.nbytes for t in (mv, slot, pf, wts, ex, inter)
                 if t is not None)
-    nbytes = rows * table.shape[1] * table.element_size() + grids \
+    nbytes = nrows * table.shape[1] * table.element_size() + grids \
         + sum(o.nbytes for o in outs)
-    return bound(nbytes, 2 * rows * (792 if luma else 280))
+    return bound(nbytes, 2 * ngather * (792 if luma else 280))
 
 
 def k2_synthetic(rng, H, W, bitdepth, dev, tables=None):
@@ -294,9 +375,12 @@ def check_k2(dev, rng, plans):
             torch.cuda.synchronize()
             require_equal(f"K2 {what}", got, want)
             err = max_abs_err(got, want)
-            ms = cuda_time(lambda: k.mc_predict(*args), 20)
+            ms, outs = graph_ms(lambda: k.mc_predict(*args), 20)
+            for i, o in enumerate(outs):
+                require_equal(f"K2 {what} timed call {i}", o, want)
+            del outs
             pms = cuda_time(lambda: mc_predict_plain(*args), 3)
-            bnd = k2_bound(tab, *a, got, bi)
+            bnd = k2_bound(tab, dims, *a, got, bi)
             nin = int(a[-1].sum())
             res.append((what, err, ms, pms, bnd))
             log(f"K2 {what} ({nin} inter blocks of {a[-1].numel()}): "
@@ -355,15 +439,24 @@ def check_k5(dev, rng, tile_plans):
         torch.cuda.synchronize()
         require_equal(f"K5 {name}", got, want)
         err = max_abs_err(got, want)
-        ms = cuda_time(lambda: build_tile_tables(py, pc, dt), 20)
+        # the 4K stack's tables are 1.4 GB a call: fewer calls kept
+        ms, outs = graph_ms(lambda: build_tile_tables(py, pc, dt),
+                            4 if py.shape[-1] > 2000 else 20)
+        for i, o in enumerate(outs):
+            require_equal(f"K5 {name} timed call {i}", o, want)
+        del outs
         pms = cuda_time(lambda: build_tile_tables_plain(py, pc, dt), 3)
+        require_equal(f"K5 {name} library call", k5_library(py, pc, dt),
+                      want)
+        lms = cuda_time(lambda: k5_library(py, pc, dt), 20)
         # reads the padded stacks once, writes both fresh tables
         bnd = bound(py.nbytes + pc.nbytes + sum(t.nbytes for t in got), 0)
-        res.append((name, err, ms, pms, bnd))
+        res.append((name, err, ms, pms, bnd, lms))
         log(f"K5 {name} (luma + Cb|Cr, {tuple(py.shape)} padded luma, "
             f"{sum(t.nbytes for t in got) / 1e6:.1f} MB of tables): equal; "
             f"kernel {ms:.4f} ms for both launches, plain {pms:.4f} ms, "
-            f"bound {bnd[0]:.4f} ms ({bnd[1]})")
+            f"library (strided copy_ + zero_) {lms:.4f} ms, bound "
+            f"{bnd[0]:.4f} ms ({bnd[1]})")
         del py, pc, got, want
         torch.cuda.empty_cache()
     return res
@@ -407,9 +500,13 @@ def check_k2_strip(dev, rng, plans):
         torch.cuda.synchronize()
         require_equal(f"K2 strip {grp}", got, want)
         err = max_abs_err(got, want)
-        ms = cuda_time(lambda: k.mc_predict(*args, strip=Ws, x0=x0), 20)
+        ms, outs = graph_ms(lambda: k.mc_predict(*args, strip=Ws, x0=x0),
+                            20)
+        for i, o in enumerate(outs):
+            require_equal(f"K2 strip {grp} timed call {i}", o, want)
+        del outs
         pms = cuda_time(lambda: mc_predict_plain(*args, strip=Ws, x0=x0), 3)
-        bnd = k2_bound(tab, *a, got, cfg.has_bi)
+        bnd = k2_bound(tab, (H, W), *a, got, cfg.has_bi, x0)
         what = f"{TILE_STREAM} P frame strip {d} {grp}"
         res.append((what, err, ms, pms, bnd))
         log(f"K2 {what} (x0 {x0}, {wd} of {Ws} columns valid, "
@@ -708,7 +805,7 @@ def main():
                 "replaces": replaces, "launches": launched,
                 "max_abs_err": worst(rows), "ms": r[2], "plain_ms": r[3],
                 "bound_ms": r[4][0], "bound_by": r[4][1],
-                "library_ms": None}
+                "library_ms": r[5] if len(r) > 5 else None}
     k4_4k = [r for r in k4 if r[0].startswith(STREAM)]
     kernels = [
         row("K1 tile-table update (4K luma slot)", "mc_tables.cu",

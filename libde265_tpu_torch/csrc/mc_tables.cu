@@ -18,116 +18,260 @@
 // Bound on the H100: pure data movement, dominated by the 16x expanding
 // write (about 153 MB per 4K 4:2:0 frame in uint8: a ~46 us floor at the
 // H100 SXM's 3.35 TB/s, 700 W limit; twice the write for int16 tables).
-// Design: both kernels run one block body. A block owns one tile row and
-// a group of TXB tile columns of one plane group: it stages the T input
-// rows it needs in shared memory with coalesced loads, then its threads
-// emit the table rows as consecutive 16-byte stores (16 uint8 or 8 int16
-// samples), so every warp writes 512 contiguous bytes. K5 adds the slot as
-// the grid's third dimension. The TPU's MXU permutation dot, sublane roll
-// and double-buffered DMA span are store tricks for that machine and are
-// not carried over.
+// Design: both kernels run one block body. A block
+// owns a strip of TXB tile columns (TXB * row bytes = 8 KB of table a tile
+// row, two 16-byte stores a thread) and walks TYB tile rows down it. It
+// keeps the input rows of the current tile row in a ring of T + 4 rows in
+// shared memory, stored column-major as the table's element type (4 uint8
+// or 2 int16 rows of one column per 32-bit word, an odd word pitch per
+// column against bank conflicts), so a 16-byte table chunk is 4 aligned
+// 32-bit shared reads. Each tile row needs only 4 new input rows: they are
+// requested with 16-byte cp.async copies (8 int16 samples) into a
+// row-major buffer before the current tile row's stores are issued, then
+// transposed into the ring words of the 4 rows the current tile row no
+// longer reads; so every input row is loaded once per strip and its load
+// overlaps the stores. Table rows go out with streaming stores: the table
+// is not read again before the next frame's MC and a 4K luma slot (136
+// MB) exceeds the 50 MB L2. Padded planes whose pitch is not a multiple
+// of 8 samples stage with 2-byte loads instead. K5 adds the slot as the
+// grid's third dimension. The TPU's MXU permutation dot, sublane roll and
+// double-buffered DMA span are store tricks for that machine and are not
+// carried over.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int TXB = 64;        // tile columns per block
 constexpr int THREADS = 256;
 
-// Table rows of tile row ty, tile columns [tx0, tx0 + TXB) of one plane
-// group; `rows` is the row of tile (ty, tx0), `padded` the group's first
-// plane (P planes of Hp x Wp int16).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
+               :: "r"((unsigned)__cvta_generic_to_shared(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+
 template <int T, int P, typename OT>
-__device__ __forceinline__ void tile_rows_block(
-    OT* __restrict__ rows, const int16_t* __restrict__ padded, int Hp,
-    int Wp, int nty, int ntx, int ty, int tx0) {
-  constexpr int ROW = P * T * T;              // elements per table row
-  constexpr int EPC = 16 / (int)sizeof(OT);   // elements per 16-byte store
-  constexpr int CHUNKS = ROW / EPC;           // 16-byte stores per row
-  constexpr int SW = 4 * (TXB - 1) + T;       // staged columns per block
-  static_assert(ROW % EPC == 0, "rows are whole 16-byte chunks");
-  __shared__ OT sm[P][T][SW];
-  union Chunk {
-    uint4 u;
-    OT e[EPC];
-  };
+struct Tiles {
+  static constexpr int ROW = P * T * T;            // elements per table row
+  static constexpr int EPC = 16 / (int)sizeof(OT); // elements per 16 bytes
+  static constexpr int CHUNKS = ROW / EPC;         // 16-byte chunks per row
+  static constexpr int TXB = 2 * THREADS / CHUNKS; // tile columns per block
+  static constexpr int TYB = 4;                     // tile rows per block
+  static constexpr int NC = 4 * (TXB - 1) + T;     // staged columns
+  static constexpr int NCS = (NC + 7) / 8 * 8;     // staged, whole vectors
+  static constexpr int RING = T + 4;               // input rows in the ring
+  static constexpr int RPW = 4 / (int)sizeof(OT);  // rows per 32-bit word
+  static constexpr int CPW = (RING / RPW) | 1;     // words per column
+};
 
-  const int ntxb = min(TXB, ntx - tx0);
-  uint4* out = reinterpret_cast<uint4*>(rows);
-  const int nchunks = ntxb * CHUNKS;
-
-  if (ty >= nty) {                            // layout padding rows
-    for (int i = threadIdx.x; i < nchunks; i += THREADS)
-      out[i] = make_uint4(0u, 0u, 0u, 0u);
-    return;
-  }
-  const int ncols = 4 * (ntxb - 1) + T;
-  for (int i = threadIdx.x; i < P * T * ncols; i += THREADS) {
-    const int p = i / (T * ncols);
-    const int rem = i - p * (T * ncols);
-    const int r = rem / ncols;
-    const int c = rem - r * ncols;
-    sm[p][r][c] = (OT)padded[((size_t)p * Hp + 4 * ty + r) * Wp
-                             + 4 * tx0 + c];
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < nchunks; i += THREADS) {
-    const int txl = i / CHUNKS;
-    const int k = i - txl * CHUNKS;
-    Chunk v;
-#pragma unroll
-    for (int b = 0; b < EPC; ++b) {
-      const int e = EPC * k + b;
-      const int p = e / (T * T);
-      const int c = (e % (T * T)) / T;
-      const int r = e % T;
-      v.e[b] = sm[p][r][4 * txl + c];
+// request input rows R .. R+NR-1 of the block's columns [c0, c0 + ncols)
+// into buf[p][m][col] (int16, row-major): 16-byte cp.async copies when
+// VEC, else plain 2-byte loads
+template <int NR, int P, int RB, int NCS, bool VEC>
+__device__ __forceinline__ void fetch_rows(int16_t (*buf)[RB][NCS],
+                                           const int16_t* __restrict__ padded,
+                                           int Hp, int Wp, int R, int c0,
+                                           int ncols) {
+  if (VEC) {
+    const int nv = (ncols + 7) >> 3;
+    for (int i = threadIdx.x; i < P * NR * nv; i += THREADS) {
+      const int p = i / (NR * nv);
+      const int m = (i / nv) % NR;
+      const int v = i % nv;
+      cp_async16(&buf[p][m][8 * v],
+                 padded + ((size_t)p * Hp + R + m) * Wp + c0 + 8 * v);
     }
-    out[i] = v.u;
+    cp_async_commit();
+  } else {
+    for (int i = threadIdx.x; i < P * NR * ncols; i += THREADS) {
+      const int p = i / (NR * ncols);
+      const int m = (i / ncols) % NR;
+      const int c = i % ncols;
+      buf[p][m][c] = padded[((size_t)p * Hp + R + m) * Wp + c0 + c];
+    }
   }
 }
 
-template <int T, int P>
+// the NR fetched rows (input rows R .. R+NR-1, R % 4 == 0) into the ring,
+// 4 rows at a time: rows R' .. R'+3 go to words (R' % RING) / RPW .. of
+// each column. Rows R' - RING .. held those words, and the tile row that
+// reads rows R' - RING + 4 .. R' - 1 reads none of them, so the next
+// tile row's rows can be stored while that one is still being emitted.
+template <int NR, int P, int RB, int NC, int NCS, int RING, int CPW,
+          typename OT>
+__device__ __forceinline__ void ring_store(uint32_t (*ring)[NC][CPW],
+                                           int16_t (*buf)[RB][NCS], int R,
+                                           int ncols) {
+  constexpr int RPW = 4 / (int)sizeof(OT);
+  for (int i = threadIdx.x; i < P * ncols; i += THREADS) {
+    const int p = i / ncols;
+    const int c = i % ncols;
+#pragma unroll
+    for (int q = 0; q < NR; q += 4) {
+      const int w0 = ((R + q) % RING) / RPW;
+      uint32_t s[4];
+#pragma unroll
+      for (int m = 0; m < 4; ++m) s[m] = (uint16_t)buf[p][q + m][c];
+      if (sizeof(OT) == 1) {
+        ring[p][c][w0] = (s[0] & 0xff) | (s[1] & 0xff) << 8
+                         | (s[2] & 0xff) << 16 | (s[3] & 0xff) << 24;
+      } else {
+        ring[p][c][w0] = s[0] | s[1] << 16;
+        ring[p][c][w0 + 1] = s[2] | s[3] << 16;
+      }
+    }
+  }
+}
+
+// Table rows of tile rows [ty0, ty0 + TYB) and tile columns
+// [tx0, tx0 + TXB) of one plane group; `slot_rows` is the row of tile
+// (0, 0) of the slot, `padded` the group's first plane (P planes of
+// Hp x Wp int16).
+template <int T, int P, typename OT, bool VEC>
+__device__ __forceinline__ void tile_rows_block(
+    OT* __restrict__ slot_rows, const int16_t* __restrict__ padded, int Hp,
+    int Wp, int nty, int nty_p, int ntx, int ty0, int tx0) {
+  using G = Tiles<T, P, OT>;
+  constexpr int EPC = G::EPC, CHUNKS = G::CHUNKS, RING = G::RING;
+  constexpr int RPW = G::RPW;
+  __shared__ uint32_t ring[P][G::NC][G::CPW];
+  __shared__ __align__(16) int16_t buf[P][T][G::NCS];
+
+  const int ntxb = min(G::TXB, ntx - tx0);
+  const int ncols = 4 * (ntxb - 1) + T;
+  const int c0 = 4 * tx0;
+  const int ty1 = min(ty0 + G::TYB, nty_p);
+  const int nchunks = ntxb * CHUNKS;
+
+  // the first tile row's T input rows
+  if (ty0 < nty) {
+    fetch_rows<T, P, T, G::NCS, VEC>(buf, padded, Hp, Wp, 4 * ty0, c0,
+                                     ncols);
+    if (VEC) cp_async_wait_all();
+    __syncthreads();
+    ring_store<T, P, T, G::NC, G::NCS, RING, G::CPW, OT>(ring, buf, 4 * ty0,
+                                                          ncols);
+    __syncthreads();
+  }
+  for (int ty = ty0; ty < ty1; ++ty) {
+    uint4* out = reinterpret_cast<uint4*>(
+        slot_rows + ((size_t)ty * ntx + tx0) * G::ROW);
+    if (ty >= nty) {                         // layout padding rows
+      for (int i = threadIdx.x; i < nchunks; i += THREADS)
+        __stcs(out + i, make_uint4(0u, 0u, 0u, 0u));
+      continue;
+    }
+    // the next tile row's 4 new input rows, in flight during the stores
+    const bool more = ty + 1 < min(ty1, nty);
+    if (more)
+      fetch_rows<4, P, T, G::NCS, VEC>(buf, padded, Hp, Wp, 4 * ty + T, c0,
+                                       ncols);
+    const int rb = (4 * ty) % RING;          // ring row of input row 4ty
+    for (int i = threadIdx.x; i < nchunks; i += THREADS) {
+      const int txl = i / CHUNKS;
+      const int k = i - txl * CHUNKS;
+      uint32_t w[4];
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const int e = EPC * k + m * RPW;     // first element of word m
+        const int p = e / (T * T);
+        const int c = (e / T) % T;
+        int rr = rb + e % T;
+        rr -= rr >= RING ? RING : 0;
+        w[m] = ring[p][4 * txl + c][rr / RPW];
+      }
+      __stcs(out + i, make_uint4(w[0], w[1], w[2], w[3]));
+    }
+    if (more) {
+      if (VEC) cp_async_wait_all();
+      __syncthreads();                       // every copy has landed
+      ring_store<4, P, T, G::NC, G::NCS, RING, G::CPW, OT>(ring, buf,
+                                                           4 * ty + T, ncols);
+      __syncthreads();
+    }
+  }
+}
+
+template <int T, int P, bool VEC>
 __global__ void __launch_bounds__(THREADS)
 update_tile_table_kernel(uint8_t* __restrict__ table,
                          const int16_t* __restrict__ padded, int Hp, int Wp,
                          int nty, int nty_p, int ntx, int slot) {
-  const int ty = blockIdx.y;
-  const int tx0 = blockIdx.x * TXB;
-  const size_t row0 = ((size_t)slot * nty_p + ty) * ntx + tx0;
-  tile_rows_block<T, P, uint8_t>(table + row0 * (P * T * T), padded, Hp, Wp,
-                                 nty, ntx, ty, tx0);
+  using G = Tiles<T, P, uint8_t>;
+  tile_rows_block<T, P, uint8_t, VEC>(
+      table + (size_t)slot * nty_p * ntx * G::ROW, padded, Hp, Wp, nty,
+      nty_p, ntx, blockIdx.y * G::TYB, blockIdx.x * G::TXB);
 }
 
-template <int T, int P, typename OT>
+template <int T, int P, typename OT, bool VEC>
 __global__ void __launch_bounds__(THREADS)
 build_tile_table_kernel(OT* __restrict__ table,
                         const int16_t* __restrict__ padded, int Hp, int Wp,
                         int nty, int nty_p, int ntx) {
+  using G = Tiles<T, P, OT>;
   const int r = blockIdx.z;
-  const int ty = blockIdx.y;
-  const int tx0 = blockIdx.x * TXB;
-  const size_t row0 = ((size_t)r * nty_p + ty) * ntx + tx0;
-  tile_rows_block<T, P, OT>(table + row0 * (P * T * T),
-                            padded + (size_t)r * P * Hp * Wp, Hp, Wp, nty,
-                            ntx, ty, tx0);
+  tile_rows_block<T, P, OT, VEC>(
+      table + (size_t)r * nty_p * ntx * G::ROW,
+      padded + (size_t)r * P * Hp * Wp, Hp, Wp, nty, nty_p, ntx,
+      blockIdx.y * G::TYB, blockIdx.x * G::TXB);
+}
+
+template <int T, int P, typename OT>
+dim3 tile_grid(int ntx, int nty_p, int R) {
+  using G = Tiles<T, P, OT>;
+  return dim3((ntx + G::TXB - 1) / G::TXB, (nty_p + G::TYB - 1) / G::TYB, R);
+}
+
+// 16-byte staging needs 16-byte aligned planes and rows of 8k samples
+bool vec_ok(const void* padded, int Wp) {
+  return (uintptr_t)padded % 16 == 0 && Wp % 8 == 0;
+}
+
+template <int T, int P, typename OT>
+cudaError_t launch_build(void* table, const int16_t* padded, int Hp, int Wp,
+                         int nty, int nty_p, int ntx, int R, cudaStream_t s) {
+  const dim3 grid = tile_grid<T, P, OT>(ntx, nty_p, R);
+  if (vec_ok(padded, Wp))
+    build_tile_table_kernel<T, P, OT, true><<<grid, THREADS, 0, s>>>(
+        (OT*)table, padded, Hp, Wp, nty, nty_p, ntx);
+  else
+    build_tile_table_kernel<T, P, OT, false><<<grid, THREADS, 0, s>>>(
+        (OT*)table, padded, Hp, Wp, nty, nty_p, ntx);
+  return cudaGetLastError();
 }
 
 template <typename OT>
-cudaError_t launch_build(void* table, const int16_t* padded, int P, int T,
-                         int Hp, int Wp, int nty, int nty_p, int ntx, int R,
-                         cudaStream_t s) {
-  dim3 grid((ntx + TXB - 1) / TXB, nty_p, R);
-  OT* tab = (OT*)table;
-  if (P == 1 && T == 16) {
-    build_tile_table_kernel<16, 1, OT><<<grid, THREADS, 0, s>>>(
-        tab, padded, Hp, Wp, nty, nty_p, ntx);
-  } else if (P == 2 && T == 8) {
-    build_tile_table_kernel<8, 2, OT><<<grid, THREADS, 0, s>>>(
-        tab, padded, Hp, Wp, nty, nty_p, ntx);
-  } else {
-    return cudaErrorInvalidValue;
-  }
+cudaError_t launch_build_t(void* table, const int16_t* padded, int P, int T,
+                           int Hp, int Wp, int nty, int nty_p, int ntx, int R,
+                           cudaStream_t s) {
+  if (P == 1 && T == 16)
+    return launch_build<16, 1, OT>(table, padded, Hp, Wp, nty, nty_p, ntx, R,
+                                   s);
+  if (P == 2 && T == 8)
+    return launch_build<8, 2, OT>(table, padded, Hp, Wp, nty, nty_p, ntx, R,
+                                  s);
+  return cudaErrorInvalidValue;
+}
+
+template <int T, int P>
+cudaError_t launch_update(uint8_t* table, const int16_t* padded, int Hp,
+                          int Wp, int nty, int nty_p, int ntx, int slot,
+                          cudaStream_t s) {
+  const dim3 grid = tile_grid<T, P, uint8_t>(ntx, nty_p, 1);
+  if (vec_ok(padded, Wp))
+    update_tile_table_kernel<T, P, true><<<grid, THREADS, 0, s>>>(
+        table, padded, Hp, Wp, nty, nty_p, ntx, slot);
+  else
+    update_tile_table_kernel<T, P, false><<<grid, THREADS, 0, s>>>(
+        table, padded, Hp, Wp, nty, nty_p, ntx, slot);
   return cudaGetLastError();
 }
 
@@ -137,20 +281,16 @@ extern "C" int k1_update_tile_table(void* table, const void* padded,
                                     int P, int T, int Hp, int Wp, int nty,
                                     int nty_p, int ntx, int slot,
                                     void* stream) {
-  dim3 grid((ntx + TXB - 1) / TXB, nty_p);
   cudaStream_t s = (cudaStream_t)stream;
   uint8_t* tab = (uint8_t*)table;
   const int16_t* pad = (const int16_t*)padded;
-  if (P == 1 && T == 16) {
-    update_tile_table_kernel<16, 1><<<grid, THREADS, 0, s>>>(
-        tab, pad, Hp, Wp, nty, nty_p, ntx, slot);
-  } else if (P == 2 && T == 8) {
-    update_tile_table_kernel<8, 2><<<grid, THREADS, 0, s>>>(
-        tab, pad, Hp, Wp, nty, nty_p, ntx, slot);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  if (P == 1 && T == 16)
+    return (int)launch_update<16, 1>(tab, pad, Hp, Wp, nty, nty_p, ntx, slot,
+                                     s);
+  if (P == 2 && T == 8)
+    return (int)launch_update<8, 2>(tab, pad, Hp, Wp, nty, nty_p, ntx, slot,
+                                    s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // padded: (R, P, Hp, Wp) int16; table: (R * nty_p * ntx, P*T*T) of
@@ -164,10 +304,10 @@ extern "C" int k5_build_tile_table(void* table, const void* padded, int P,
   cudaStream_t s = (cudaStream_t)stream;
   const int16_t* pad = (const int16_t*)padded;
   if (elem_bytes == 1)
-    return (int)launch_build<uint8_t>(table, pad, P, T, Hp, Wp, nty, nty_p,
-                                      ntx, R, s);
+    return (int)launch_build_t<uint8_t>(table, pad, P, T, Hp, Wp, nty, nty_p,
+                                        ntx, R, s);
   if (elem_bytes == 2)
-    return (int)launch_build<int16_t>(table, pad, P, T, Hp, Wp, nty, nty_p,
-                                      ntx, R, s);
+    return (int)launch_build_t<int16_t>(table, pad, P, T, Hp, Wp, nty, nty_p,
+                                        ntx, R, s);
   return (int)cudaErrorInvalidValue;
 }

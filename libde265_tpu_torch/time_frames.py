@@ -17,6 +17,20 @@ times ROOT's K4 wrapper `intra_scan` on the whole ld4k_light IDR instead,
 each plane group on seeded random planes: CUDA-event milliseconds per
 call over 10 calls, three times, and a digest of the planes after one
 call (equal digests: the two checkouts computed the same planes).
+
+    python3 libde265_tpu_torch/time_frames.py --k2 [ROOT] [TAG]
+
+times ROOT's K2 wrapper `mc_predict` the same way: on the first
+ld4k_light P frame's real grids over seeded 8-slot 4K tables (luma, then
+the [Cb|Cr] pair), and on ROOT's chip_smoke.k2_synthetic bi + weighted
+4K case over the same tables.
+
+    python3 libde265_tpu_torch/time_frames.py --k1 [ROOT] [TAG]
+
+times ROOT's K1 wrapper `update_tile_table` on a seeded 4K frame into
+slot 5 of an 8-slot table (luma, then chroma), and K5's
+`build_tile_tables` (both launches) on seeded stacks of R = 2 1080p
+frames (the tile path's shape) and R = 8 4K frames into uint8 tables.
 """
 import hashlib
 import os
@@ -42,17 +56,117 @@ def time_k4(plans, dev, tag):
         got = [torch.as_tensor(rng.randint(0, 256, dims[i]),
                                dtype=torch.int32, device=dev) for i in idx]
         intra_scan(got, **kw)
-        digest = hashlib.sha256(b"".join(
-            p.cpu().numpy().tobytes() for p in got)).hexdigest()[:16]
+        digest = _digest(got)
         for rep in range(3):
             ms = cuda_ms(lambda: intra_scan(got, **kw), 10)
             print(f"{tag} K4 planes {idx} rep {rep}: {ms:.4f} ms a call; "
                   f"planes sha256 {digest}", flush=True)
 
 
+def _digest(ts):
+    return hashlib.sha256(b"".join(t.cpu().numpy().tobytes()
+                                   for t in ts)).hexdigest()[:16]
+
+
+def graph_ms(fn, reps):
+    """(device milliseconds a call, outputs): `reps` calls of fn()
+    captured in one CUDA graph after a warm-up call, the second replay
+    timed with CUDA events, so the host's enqueue of each call is not in
+    the window; the outputs are fn()'s return values, holding what the
+    timed replay computed. (Here, not in profile_frames: the timed
+    checkout may predate it.)"""
+    import torch
+    from libde265_tpu_torch.profile_frames import cuda_ms
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        fn()
+    torch.cuda.current_stream().wait_stream(s)
+    g = torch.cuda.CUDAGraph()
+    outs = []
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            outs.append(fn())
+    g.replay()
+    return cuda_ms(g.replay, 1) / reps, outs
+
+
+def _report(tag, what, fn, outs):
+    """Three CUDA-event windows of 10 calls of fn, each beside the device
+    time of the same 10 calls replayed from a CUDA graph (no host enqueue
+    in the window), with the digest of the outputs `outs` after the first
+    call."""
+    from libde265_tpu_torch.profile_frames import cuda_ms
+    digest = _digest(outs)
+    for rep in range(3):
+        ms = cuda_ms(fn, 10)
+        gms = graph_ms(fn, 10)[0]
+        print(f"{tag} {what} rep {rep}: {ms:.4f} ms a call (graph replay "
+              f"{gms:.4f}); outputs sha256 {digest}", flush=True)
+
+
+def time_k2(plans, dev, tag):
+    from dataclasses import replace
+
+    import numpy as np
+    from chip_smoke import k2_synthetic
+    from libde265_tpu_torch.convert import plan_from_numpy
+    from libde265_tpu_torch.frame_program import frame_grids, mc_inputs
+    from libde265_tpu_torch.ops.kernels.mc_filter import mc_predict
+    from libde265_tpu_torch.packing import pack_frame, stream_cfg
+    cfg = replace(stream_cfg(plans, plans[0].sps), intra=(), intra_C=0)
+    t = pack_frame(plans[1], cfg, {plans[0].frame_id: 3,
+                                   plans[1].frame_id: 5})
+    grids = mc_inputs(frame_grids(plan_from_numpy(t, dev), cfg), cfg)
+    tables, synth = k2_synthetic(np.random.RandomState(2160), cfg.H, cfg.W,
+                                 8, dev)
+    for name, a, bi in (("P frame", grids, cfg.has_bi),
+                        ("bi + weighted", synth, True)):
+        for tab in tables:
+            args = (tab, (cfg.H, cfg.W), *a, 8, bi)
+            grp = "luma" if tab.shape[1] == 256 else "Cb|Cr"
+            _report(tag, f"K2 4K {name} {grp}", lambda: mc_predict(*args),
+                    mc_predict(*args))
+
+
+def time_k1(dev, tag):
+    import torch
+    from libde265_tpu_torch.ops.kernels.mc_tables import (build_tile_tables,
+                                                          update_tile_table)
+    from libde265_tpu_torch.ops.mc_tile import pad_plane, pad_refs
+    from libde265_tpu_torch.packing import (PAD_C, PAD_Y, REF_SLOTS,
+                                            n_tiles_c, n_tiles_y)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2160)
+
+    def planes(*shape):
+        return torch.randint(0, 256, shape, dtype=torch.int16, device=dev,
+                             generator=gen)
+    H, W = 2160, 3840
+    for T, P, (h, w), pad, (nty, ntx) in (
+            (16, 1, (H, W), PAD_Y, n_tiles_y(H, W)),
+            (8, 2, (H // 2, W // 2), PAD_C, n_tiles_c(H // 2, W // 2))):
+        padded = pad_plane(planes(P, h, w), pad).contiguous()
+        table = torch.zeros((REF_SLOTS * nty * ntx, P * T * T),
+                            dtype=torch.uint8, device=dev)
+        update_tile_table(table, padded, 5, T)
+        _report(tag, f"K1 4K {'luma' if T == 16 else 'chroma'} slot",
+                lambda: update_tile_table(table, padded, 5, T), [table])
+        del table
+    for R, (h, w) in ((2, (1080, 1920)), (8, (H, W))):
+        py, pc = pad_refs(planes(R, h, w), planes(R, h // 2, w // 2),
+                          planes(R, h // 2, w // 2))
+        _report(tag, f"K5 {w}x{h} R={R} uint8 (2 launches)",
+                lambda: build_tile_tables(py, pc, torch.uint8),
+                build_tile_tables(py, pc, torch.uint8))
+        del py, pc
+        torch.cuda.empty_cache()
+
+
 def main(argv):
-    k4 = argv[:1] == ["--k4"]
-    argv = argv[1:] if k4 else argv
+    mode = argv[0] if argv[:1] and argv[0] in ("--k1", "--k2", "--k4") \
+        else None
+    argv = argv[1:] if mode else argv
     root = os.path.abspath(argv[0]) if argv else \
         os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     tag = argv[1] if len(argv) > 1 else root
@@ -66,8 +180,12 @@ def main(argv):
     with open(os.path.join(root, "tests", "data", "ld4k_light.bin"),
               "rb") as f:
         plans = _parse(f.read())
-    if k4:
+    if mode == "--k4":
         return time_k4(plans, dev, tag)
+    if mode == "--k2":
+        return time_k2(plans, dev, tag)
+    if mode == "--k1":
+        return time_k1(dev, tag)
     (_, idr, _), (_, pframe, _) = frame_calls(plans, dev)
     idr()
     pframe()

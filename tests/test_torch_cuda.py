@@ -38,25 +38,40 @@ def _idr(name, dev):
     return cfg, plan_from_numpy(pack_frame(plans[0], cfg, {}), dev)
 
 
-@pytest.mark.parametrize("H,W", [(72, 136), (2160, 3840)])
-def test_k1_matches_plain(cuda, H, W):
+def _k1_case(dev, H, W, nslots, slot):
+    """K1 into `slot` of an nslots table of random rows against the plain
+    version, luma (T = 16) and the [Cb|Cr] pair (T = 8)."""
     from libde265_tpu_torch.ops.kernels import mc_tables as k
     from libde265_tpu_torch.ops.mc_tile import pad_plane
-    rng = np.random.RandomState(H)
+    rng = np.random.RandomState(H + W)
     for T, P, pad, (h, w) in ((16, 1, 16, (H, W)),
                               (8, 2, 8, (H // 2, W // 2))):
         padded = pad_plane(torch.as_tensor(
             rng.randint(0, 256, (P, h, w)), dtype=torch.int16,
-            device=cuda), pad).contiguous()
+            device=dev), pad).contiguous()
         nty = (h + 2 * pad - T + 4) // 4
         ntx = (w + 2 * pad - T + 4) // 4
-        rows = 3 * (-(-nty // 8) * 8) * ntx
+        rows = nslots * (-(-nty // 8) * 8) * ntx
         init = torch.randint(0, 256, (rows, P * T * T), dtype=torch.uint8,
-                             device=cuda)
+                             device=dev)
         got, want = init.clone(), init.clone()
-        k.update_tile_table(got, padded, 1, T)
-        k.update_tile_table_plain(want, padded, 1, T)
+        k.update_tile_table(got, padded, slot, T)
+        k.update_tile_table_plain(want, padded, slot, T)
         assert torch.equal(got, want), f"K1 T={T}"
+
+
+@pytest.mark.parametrize("H,W", [(72, 136), (2160, 3840)])
+def test_k1_matches_plain(cuda, H, W):
+    _k1_case(cuda, H, W, 3, 1)
+
+
+@pytest.mark.parametrize("H,W", [(64, 304), (16, 16), (72, 136)])
+def test_k1_last_slot_matches_plain(cuda, H, W):
+    """K1 into the last slot of a 4-slot table. At 64x304 neither the luma
+    (81) nor the chroma (41) tile columns fill whole column strips of a
+    block; 16x16 has 8x8 chroma planes; at 72x136 the chroma pitch (84)
+    is not a multiple of 8 samples, so it stages with 2-byte loads."""
+    _k1_case(cuda, H, W, 4, 3)
 
 
 @pytest.mark.parametrize("name", ["p_cif_mixed", "i_deblk_sao"])
@@ -190,7 +205,8 @@ def test_decode_on_card(cuda, name):
 
 
 @pytest.mark.parametrize("H,W,R,bitdepth", [(72, 136, 3, 10),
-                                             (1080, 1920, 2, 8)])
+                                             (1080, 1920, 2, 8),
+                                             (48, 96, 2, 12)])
 def test_k5_matches_plain(cuda, H, W, R, bitdepth):
     from libde265_tpu_torch.ops.kernels import mc_tables as k
     from libde265_tpu_torch.ops.mc_tile import pad_refs
@@ -223,6 +239,44 @@ def test_k2_strip_matches_plain(cuda, x0, Ws, bi):
         args = (tab, (H, W), mv, slot, pf, w, ex, inter, 8, bi)
         got = mc_predict(*args, strip=Ws, x0=x0)
         want = mc_predict_plain(*args, strip=Ws, x0=x0)
+        for g, p in zip(got, want):
+            assert g.shape == p.shape and torch.equal(g, p), tab.shape
+
+
+@pytest.mark.parametrize("bitdepth,bi,inter,strip", [
+    (8, False, "none", None), (8, False, "checker", None),
+    (12, False, "random", None), (12, True, "checker", None),
+    (8, False, "random", 128), (12, True, "random", 128)])
+def test_k2_edges_match_plain(cuda, bitdepth, bi, inter, strip):
+    """K2 at the edges of its design against the plain version: launches
+    without list 1, an all-false and a checkerboard inter mask, MVs that
+    clamp past every edge and corner of the frame, int16 tables at 12
+    bits, and a strip of width 128 at the last tile column (x0 = 128 of a
+    256-wide frame)."""
+    from libde265_tpu_torch.ops.kernels.mc_filter import mc_predict
+    from libde265_tpu_torch.ops.mc_tile import mc_predict_plain
+    H, W = 64, 256
+    Wo, x0 = (W, 0) if strip is None else (strip, W - strip)
+    tabs, _ = _k2_case(bitdepth, H, W, 3, bitdepth, bi, True, cuda)
+    _, (mv, slot, pf, w, ex, mask) = _k2_case(bitdepth + 1, H, Wo, 3,
+                                              bitdepth, bi, True, cuda)
+    far = 1 << 14
+    edge = torch.tensor([[-far, 0], [far, 0], [0, -far], [0, far],
+                         [-far, -far], [far, far], [-far, far], [far, -far]],
+                        dtype=torch.int32, device=cuda)
+    sel = torch.arange(mv.shape[0], device=cuda) % 10
+    mv = torch.where((sel < 8)[:, None, None],
+                     edge[sel.clamp(max=7)][:, None, :].expand(-1, 2, -1),
+                     mv).contiguous()
+    yy, xx = torch.meshgrid(torch.arange(H // 4, device=cuda),
+                            torch.arange(Wo // 4, device=cuda),
+                            indexing="ij")
+    mask = {"none": torch.zeros_like(mask), "random": mask,
+            "checker": (yy + xx) % 2 == 0}[inter].contiguous()
+    for tab in tabs:
+        args = (tab, (H, W), mv, slot, pf, w, ex, mask, bitdepth, bi)
+        got = mc_predict(*args, strip=strip, x0=x0)
+        want = mc_predict_plain(*args, strip=strip, x0=x0)
         for g, p in zip(got, want):
             assert g.shape == p.shape and torch.equal(g, p), tab.shape
 

@@ -13,12 +13,14 @@ import torch
 H, W, R = 64, 128, 4
 
 
-def _case(seed, bitdepth, bi, weighted):
+def _case(seed, bitdepth, bi, weighted, Wo=W):
+    """Seeded references of (H, W) and grids for the N blocks of an
+    (H, Wo) output."""
     rng = np.random.RandomState(seed)
     maxv = (1 << bitdepth) - 1
     refs = [rng.randint(0, maxv + 1, (R, h, w)).astype(np.int32)
             for h, w in ((H, W), (H // 2, W // 2), (H // 2, W // 2))]
-    N = (H // 4) * (W // 4)
+    N = (H // 4) * (Wo // 4)
     mv = rng.randint(-(1 << 14), 1 << 14, (N, 2, 2)).astype(np.int32)
     near = rng.rand(N) < 0.5                 # half the blocks stay inside
     mv[near] = rng.randint(-64, 64, (int(near.sum()), 2, 2))
@@ -34,7 +36,7 @@ def _case(seed, bitdepth, bi, weighted):
         wts[:, :, 2] = rng.randint(-128, 128, (N, 3))
         wts[:, :, 1] = rng.randint(-maxv // 2, maxv // 2, (N, 3))
         wts[:, :, 3] = rng.randint(-maxv // 2, maxv // 2, (N, 3))
-    inter = rng.rand(H // 4, W // 4) < 0.8
+    inter = rng.rand(H // 4, Wo // 4) < 0.8
     return refs, mv, slot, pf, wts, ex, inter
 
 
@@ -53,7 +55,7 @@ def _masked(planes, inter):
 
 
 def _port(tabs, mv, slot, pf, wts, ex, inter, bitdepth, bi, weighted,
-          fn=None):
+          fn=None, **strip):
     from libde265_tpu_torch.ops.mc_tile import mc_predict_plain
     fn = fn or mc_predict_plain
     w = (torch.as_tensor(wts), torch.as_tensor(ex.astype(np.int32))) \
@@ -61,7 +63,8 @@ def _port(tabs, mv, slot, pf, wts, ex, inter, bitdepth, bi, weighted,
     args = ((H, W), torch.as_tensor(mv), torch.as_tensor(slot),
             torch.as_tensor(pf), *w, torch.as_tensor(inter), bitdepth, bi)
     ty, tc = (torch.as_tensor(np.asarray(t)) for t in tabs)
-    return [p.numpy() for p in fn(ty, *args) + fn(tc, *args)]
+    return [p.numpy() for p in fn(ty, *args, **strip)
+            + fn(tc, *args, **strip)]
 
 
 def _eq(got, want, what):
@@ -75,7 +78,8 @@ def _eq(got, want, what):
 
 
 @pytest.mark.parametrize("seed,bitdepth,bi", [(0, 8, False), (1, 8, True),
-                                              (2, 10, False), (3, 10, True)])
+                                              (2, 10, False), (3, 10, True),
+                                              (8, 12, False)])
 def test_mc_predict_plain_matches_pallas_k2(seed, bitdepth, bi):
     import jax.numpy as jnp
     from libde265_tpu.ops.mc_tile_jax import mc_frame_tile
@@ -105,6 +109,28 @@ def test_mc_predict_plain_weighted(seed, bitdepth, bi):
     _eq(got, _masked(want, inter), "pallas K2, weighted")
     dense = mc_dense(*(jnp.asarray(r) for r in refs), *jargs, bitdepth)
     _eq(got, _masked(dense, inter), "mc_dense, weighted")
+
+
+@pytest.mark.parametrize("x0,Ws,bitdepth,bi", [(64, 64, 8, False),
+                                               (96, 64, 10, True),
+                                               (64, 64, 12, True)])
+def test_mc_predict_plain_strip_matches_pallas_k2(x0, Ws, bitdepth, bi):
+    """The strip form (the tile-column decoder's) at the right edge: a
+    strip at the last column (x0 = 64 of 128) and one that runs past the
+    frame's right edge (x0 = 96), against mc_frame_tile(strip=, x0=)
+    through the Pallas tap kernel."""
+    import jax.numpy as jnp
+    from libde265_tpu.ops.mc_tile_jax import mc_frame_tile
+    refs, mv, slot, pf, wts, ex, inter = _case(20 + x0 + bitdepth, bitdepth,
+                                               bi, True, Wo=Ws)
+    tabs = _tables(refs, bitdepth)
+    want = mc_frame_tile(tabs, (H, W), jnp.asarray(mv), jnp.asarray(slot),
+                         jnp.asarray(pf), jnp.asarray(wts), jnp.asarray(ex),
+                         bitdepth, strip=Ws, x0=x0, bi=bi, use_pallas=True,
+                         weighted=True)
+    got = _port(tabs, mv, slot, pf, wts, ex, inter, bitdepth, bi, True,
+                strip=Ws, x0=x0)
+    _eq(got, _masked(want, inter), "pallas K2, strip")
 
 
 @pytest.mark.parametrize("weighted", [False, True])

@@ -74,13 +74,23 @@ def test_tile_table_update_k1():
     """K1 (plain version on CPU) against update_tile_table_pallas in
     interpret mode: equal on every valid row of the written slot, other
     slots untouched (tests/test_mc_tile.py:233-270)."""
+    _k1_vs_pallas(72, 136, 4, 2)
+
+
+@pytest.mark.parametrize("H,W,NS,slot", [(64, 304, 4, 3), (16, 16, 2, 1)])
+def test_tile_table_update_k1_last_slot(H, W, NS, slot):
+    """The same into the last slot: at 64x304 (81 luma / 41 chroma tile
+    columns, no whole multiple of 64) and at 16x16 (8x8 chroma planes)."""
+    _k1_vs_pallas(H, W, NS, slot)
+
+
+def _k1_vs_pallas(H, W, NS, slot):
     import jax.numpy as jnp
     from libde265_tpu.ops.mc_tile_jax import (PAD_Y, PAD_C, n_tiles_y,
                                               n_tiles_c)
     from libde265_tpu.ops.pallas.mc_tables import update_tile_table_pallas
     from libde265_tpu_torch.ops.kernels.mc_tables import update_tile_table
     rng = np.random.RandomState(7)
-    H, W, NS, slot = 72, 136, 4, 2
     Y, Cb, Cr = _planes(rng, H, W)
     for T, planes, pad, (ntyp, ntx), nty in (
             (16, [Y], PAD_Y, n_tiles_y(H, W), (H + 20) // 4),
