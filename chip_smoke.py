@@ -7,8 +7,8 @@ card.
    (one nvcc per source, in parallel, sm_90a), printing the build
    seconds;
 3. checks each kernel against its plain PyTorch version on the card,
-   requiring exact equality, and times both with CUDA events; K1, K2
-   and K5 are timed as calls replayed from a CUDA graph (their device
+   requiring exact equality, and times both with CUDA events; K1, K2,
+   K3 and K5 are timed as calls replayed from a CUDA graph (their device
    time, without the host's enqueue of each call), and the output of
    every timed call is compared:
      K1 tile-table update: one 4K luma and one 4K chroma slot update
@@ -20,8 +20,10 @@ card.
         8-slot 4K tables (luma, then the [Cb|Cr] pair), a seeded 4K
         bi-predicted, explicitly weighted synthetic case, and a 10-bit
         case on int16 tables;
-     K3 SAO: 4K luma and chroma planes with the mode/aux/offs maps of the
-        ld4k_light IDR (plan_sao_compact);
+     K3 SAO from the per-CTB parameters: the three planes of the first
+        ld4k_light P frame (its real grids) and of strip 1 of the 1080p
+        tile stream's first P frame (x0 = 448, xoff = 432), over seeded
+        random planes, against sao_ctb_plain;
      K4 intra scan (the CTB-row band wavefront): the whole intra_cif_q30
         IDR (plus the same inputs with availability holes), the whole
         ld4k_light IDR and the IDR of p_tiles4_1080p_mv (slots in tile
@@ -53,8 +55,9 @@ card.
    ["cuda:0"] * ncols): every strip on this card), counters zeroed before
    each: every frame MD5-equal to its manifest, no frame on the host
    path, every P frame decoded as strips, and the exact launch counts the
-   code gives (K5 2 per strip frame, K2 2 and K3 3 per strip, K1 2 and
-   K3 3 per frame of the single-device program, K4 >= 1); with two
+   code gives (K5 2 per strip frame, K2 2 and K3 3 per strip, K1 2 per
+   frame, strip frames included, K3 3 per frame of the single-device
+   program, K4 >= 1); with two
    cards, p_tiles2_mv again across cuda:0 and cuda:1;
 7. times the 4K IDR and one 4K P frame through the frame program, and
    the 1080p tile stream's decode (wall) and one of its P frames through
@@ -239,34 +242,69 @@ def check_k1(dev, rng, H=2160, W=3840):
     return res
 
 
-def check_k3(dev, rng, cfg4k, t4k):
+def k3_bound(x, g, cidx):
+    """K3's bound from this call's inputs: the plane read once and
+    written once, the off grid and the CTB parameters it reads (sao_type,
+    eo, band, sao_off, sidx, the slice table, pair_ok) once; about 12
+    int32 operations a sample (neighbour compares, offset, clip)."""
+    en = "sh_sao_luma" if cidx == 0 else "sh_sao_chroma"
+    grids = sum(g[k].nbytes for k in ("off", "sao_type", "sao_eo",
+                                      "sao_band", "sao_off", "sidx", en,
+                                      "pair_ok"))
+    return bound(2 * x.nbytes + grids, 12 * x.numel())
+
+
+def check_k3(dev, rng, plans, tile_plans):
+    """K3 (sao_ctb) against sao_ctb_plain: the first ld4k_light P frame's
+    real grids (frame_grids), all three planes, and the three planes of
+    strip 1 of the 1080p tile stream's first P frame (x0 = 448, xoff =
+    432), over seeded random planes; timed as calls replayed from a CUDA
+    graph, every timed call compared."""
     import torch
+    from dataclasses import replace
+    from libde265_tpu_torch.convert import plan_from_numpy
     from libde265_tpu_torch.frame_program import frame_grids
-    from libde265_tpu_torch.ops.filter_plan import plan_sao_compact
     from libde265_tpu_torch.ops.kernels import sao_filter as k
-    g = frame_grids(t4k, cfg4k)
+    from libde265_tpu_torch.packing import pack_frame, stream_cfg
+    from libde265_tpu_torch.parallel.tile_shard import HALO_Y, split_strips
+    cfg = replace(stream_cfg(plans, plans[0].sps), intra=(), intra_C=0)
+    g4k = frame_grids(plan_from_numpy(pack_frame(
+        plans[1], cfg, {plans[0].frame_id: 3, plans[1].frame_id: 5}), dev),
+        cfg)
+    tcfg = replace(stream_cfg(tile_plans, tile_plans[0].sps), intra=(),
+                   intra_C=0)
+    fid_slot = {p.frame_id: i for i, p in enumerate(tile_plans)}
+    tsh, trep, x0w = split_strips(tile_plans[1], tcfg, fid_slot, 4)
+    gs = plan_from_numpy(dict(trep, **{kk: v[1] for kk, v in tsh.items()}),
+                         dev)
+    ws = gs["off"].shape[1] * 4
+    cases = [(f"{STREAM} P frame", cfg, g4k, 0, (cfg.H, cfg.W)),
+             (f"{TILE_STREAM} P frame strip 1", tcfg, gs,
+              int(x0w[1, 0]) - HALO_Y, (tcfg.H, ws))]
     res = []
-    for ci in range(3):
-        mode, aux, offs = (m.contiguous()
-                           for m in plan_sao_compact(g, cfg4k.scfg, ci))
-        x = torch.as_tensor(rng.randint(0, 256, mode.shape),
-                            dtype=torch.int32, device=dev)
-        got = k.sao_filter(x, mode, aux, offs, 8)
-        want = k.sao_filter_plain(x, mode, aux, offs, 8)
-        torch.cuda.synchronize()
-        require_equal(f"K3 plane {ci}", [got], [want])
-        err = max_abs_err([got], [want])
-        ms = cuda_time(lambda: k.sao_filter(x, mode, aux, offs, 8), 20)
-        pms = cuda_time(lambda: k.sao_filter_plain(x, mode, aux, offs, 8),
-                        5)
-        # x, the three maps and the offsets in, the plane out; about 12
-        # int32 operations a sample (neighbour compares, offset, clip)
-        bnd = bound(sum(t.nbytes for t in (x, mode, aux, offs)) + x.nbytes,
-                    12 * x.numel())
-        res.append((ci, err, ms, pms, bnd))
-        log(f"K3 plane {ci} {tuple(x.shape)} ({int((mode != 0).sum())} "
-            f"filtered samples): equal; kernel {ms:.4f} ms, plain "
-            f"{pms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
+    for name, c, g, xoff, (h, w) in cases:
+        for ci in range(3):
+            sub = 1 if ci == 0 else 2
+            x = torch.as_tensor(rng.randint(0, 256, (h // sub, w // sub)),
+                                dtype=torch.int32, device=dev)
+            args = (x, g, c.scfg, ci, xoff, 8)
+            got = k.sao_ctb(*args)
+            want = k.sao_ctb_plain(*args)
+            torch.cuda.synchronize()
+            what = f"{name} plane {ci}"
+            require_equal(f"K3 {what}", [got], [want])
+            err = max_abs_err([got], [want])
+            ms, outs = graph_ms(lambda: k.sao_ctb(*args), 20)
+            for i, o in enumerate(outs):
+                require_equal(f"K3 {what} timed call {i}", [o], [want])
+            del outs
+            pms = cuda_time(lambda: k.sao_ctb_plain(*args), 3)
+            bnd = k3_bound(x, g, ci)
+            res.append((what, err, ms, pms, bnd))
+            log(f"K3 {what} {tuple(x.shape)} (xoff {xoff}, "
+                f"{int((want != x).sum())} samples changed): equal; kernel "
+                f"{ms:.4f} ms, plain {pms:.4f} ms, bound {bnd[0]:.4f} ms "
+                f"({bnd[1]})")
     return res
 
 
@@ -677,11 +715,12 @@ def main():
     k1 = check_k1(dev, rng)
     k2 = check_k2(dev, rng, plans)
     torch.cuda.empty_cache()
-    k3 = check_k3(dev, rng, cfg4k, t4k)
+    _, tile_plans = parse(TILE_STREAM)
+    k3 = check_k3(dev, rng, plans, tile_plans)
+    torch.cuda.empty_cache()
     k4 = check_k4(dev, rng, cfg4k, t4k)
     del t4k
     torch.cuda.empty_cache()
-    _, tile_plans = parse(TILE_STREAM)
     k5 = check_k5(dev, rng, tile_plans)
     k2s = check_k2_strip(dev, rng, tile_plans)
     torch.cuda.empty_cache()
@@ -692,8 +731,8 @@ def main():
     from libde265_tpu_torch.ops.kernels.mc_filter import mc_predict
     from libde265_tpu_torch.ops.kernels.mc_tables import (build_tile_tables,
                                                           update_tile_table)
-    from libde265_tpu_torch.ops.kernels.sao_filter import sao_filter
-    counters = (update_tile_table, mc_predict, sao_filter, intra_scan,
+    from libde265_tpu_torch.ops.kernels.sao_filter import sao_ctb
+    counters = (update_tile_table, mc_predict, sao_ctb, intra_scan,
                 build_tile_tables)
 
     def decode(name, data, manifest, **kw):
@@ -759,7 +798,9 @@ def main():
         nf, ns = len(p), s_["n_strip_frames"]
         nrep = nf - ns            # frames of the single-device program
         sao = 3 if p[0].plan.sps.sample_adaptive_offset_enabled_flag else 0
-        want = [2 * nrep, 2 * ndev * ns, sao * (nrep + ndev * ns), None,
+        # K1: 2 a frame, strip frames included (their tables are brought
+        # up to date after the reassembly)
+        want = [2 * nf, 2 * ndev * ns, sao * (nrep + ndev * ns), None,
                 2 * ns * len(set(devices))]
         log(f"decode {name} ({ndev} tile columns on {devices}): {nf} "
             f"frames MD5-equal to {manifest}; n_host_frames "
@@ -814,9 +855,9 @@ def main():
         row("K2 MC (4K P frame luma)", "mc_filter.cu",
             "libde265_tpu/ops/pallas/mc_filter.py:67", launches[1], k2,
             k2[0]),
-        row("K3 SAO (4K luma plane)", "sao_filter.cu",
-            "libde265_tpu/ops/pallas/sao_filter.py:87", launches[2], k3,
-            k3[0]),
+        row("K3 SAO from the CTB parameters (4K P frame luma plane)",
+            "sao_filter.cu", "libde265_tpu/ops/pallas/sao_filter.py:87",
+            launches[2], k3, k3[0]),
         *(row(f"K4 intra scan (4K IDR {grp}, whole frame)", "intra_scan.cu",
               "libde265_tpu/ops/pallas/intra_scan.py:502", launches[3], k4,
               r) for grp, r in zip(("luma", "Cb|Cr"), k4_4k)),

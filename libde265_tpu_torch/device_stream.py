@@ -287,7 +287,9 @@ class ShardedStreamDecoder(DeviceStreamDecoder):
     (parallel/tile_shard.py). `devices` has one entry per tile column and
     may repeat a device; each distinct device holds a replica of the DPB
     stacks. Frames with intra CUs run the single-device frame program on
-    devices[0], and their result is copied to the other replicas. Asking
+    devices[0], and their result is copied to the other replicas. After
+    every strip frame, K1 brings the persistent MC tile tables (on
+    devices[0]) up to date from the reassembled slot. Asking
     for CUDA where there is none raises, and so does a stream whose
     frames are not len(devices) tile columns of 4:2:0 samples (ValueError):
     no inter frame of a stream it accepts leaves the strip program."""
@@ -352,4 +354,9 @@ class ShardedStreamDecoder(DeviceStreamDecoder):
         self.pack_seconds += time.perf_counter() - t0
         decode_frame_tiles(self.replicas, self.devices, tsh, trep, x0w,
                            out_slot, self.cfg_scan)
+        # the strips write only the DPB: bring the persistent MC tables
+        # up to date for a later frame of the single-device program
+        update_tables(self.ty, self.tc, self.dy[out_slot],
+                      self.dcb[out_slot], self.dcr[out_slot], out_slot,
+                      self.cfg)
         self.n_strip_frames += 1

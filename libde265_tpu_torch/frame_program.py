@@ -23,10 +23,10 @@ from torch.profiler import record_function
 
 from .intra_fused import intra_stage_scan, unnibble, unpack_bits
 from .ops.deblock import deblock_luma_pass, deblock_chroma_pass
-from .ops.filter_plan import plan_deblock_device, plan_sao_compact
+from .ops.filter_plan import plan_deblock_device
 from .ops.kernels.mc_filter import mc_predict
 from .ops.kernels.mc_tables import update_tile_table
-from .ops.kernels.sao_filter import sao_filter
+from .ops.kernels.sao_filter import sao_ctb
 from .ops.mc_tile import pad_plane
 from .ops.transform import residual_batch
 from .packing import (BIT_KEYS, BIT2_KEYS, PAD_C, PAD_Y, REF_SLOTS,
@@ -295,16 +295,11 @@ def _finish_frame(dy, dcb, dcr, ty, tc, t, out_slot, cfg, Y, Cb, Cr):
             Cr = deblock_chroma_pass(Cr, act[1], tc_map[1], p_off, q_off,
                                      vertical=vertical, bitdepth=bd)
 
-    # ---- SAO (K3, one launch per plane)
+    # ---- SAO (K3 from the per-CTB parameters, one launch per plane)
     if cfg.sao_enabled:
         with record_function("sao"):
-            outs = []
-            for ci, P in enumerate((Y, Cb, Cr)):
-                mode, aux, offs = plan_sao_compact(t, cfg.scfg, ci)
-                outs.append(sao_filter(P.contiguous(), mode.contiguous(),
-                                       aux.contiguous(), offs.contiguous(),
-                                       bitdepth=bd))
-            Y, Cb, Cr = outs
+            Y, Cb, Cr = (sao_ctb(P, t, cfg.scfg, ci, bitdepth=bd)
+                         for ci, P in enumerate((Y, Cb, Cr)))
 
     # ---- DPB + tile-table insert (K1)
     with record_function("insert"):

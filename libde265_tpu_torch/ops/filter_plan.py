@@ -315,7 +315,8 @@ def plan_sao_device(grids, cfg, cidx, xoff=0):
 
 def plan_sao_compact(grids, cfg, cidx, xoff=0):
     """Fold plan_sao_device's per-sample maps into the three compact int8
-    maps the SAO kernel consumes (ops/kernels/sao_filter.py): mode
+    maps that K3's plain version applies (ops/kernels/sao_filter.py; the
+    kernel derives them per sample from the CTB parameters): mode
     (0 off / 1 band / 2 edge, with skip + availability + picture boundary
     folded into 0), aux (band position or EO class), offs (4, H, W)."""
     t, eo, band, offs, skip, avail = plan_sao_device(grids, cfg, cidx,

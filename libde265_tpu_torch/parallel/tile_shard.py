@@ -19,9 +19,10 @@ copies between the devices of the list, in one process:
   halo exchange, once every strip has its pre-filter pixels: 16 luma / 8
       chroma columns of each neighbour's strip copied to this strip's
       device (the JAX all_gather + one-hot select);
-  per strip: deblocking and SAO (K3) on the halo-extended strip, with
-      strip-local metadata planned from the global CTB tables
-      (ops/filter_plan.py xoff), then the crop;
+  per strip: deblocking and SAO (K3) on the halo-extended strip, the
+      deblocking metadata planned from the global CTB tables
+      (ops/filter_plan.py xoff) and K3 reading them on the global CTB
+      grid, then the crop;
   reassembly: each strip's valid columns written into the output slot
       of every DPB replica (the JAX all_gather into the replicated DPB).
 
@@ -29,8 +30,9 @@ Each step runs under a torch.profiler.record_function range (tables,
 upload, mc, residual, halo, deblock, sao, assemble), which
 profile_frames.py reads.
 
-Like the JAX strip program, this one does not refresh the persistent
-MC tile tables of the frames it decodes (ROADMAP queue 3).
+Like the JAX strip program, this one writes only the DPB replicas;
+device_stream.ShardedStreamDecoder refreshes the persistent MC tile
+tables of the frame after it (the JAX decoder does not: ROADMAP queue 3).
 """
 import contextlib
 
@@ -41,9 +43,9 @@ from torch.profiler import record_function
 from ..convert import plan_from_numpy
 from ..frame_program import _scatter_residual_slots, mc_inputs
 from ..ops.deblock import deblock_chroma_pass, deblock_luma_pass
-from ..ops.filter_plan import plan_deblock_device, plan_sao_compact
+from ..ops.filter_plan import plan_deblock_device
 from ..ops.kernels.mc_filter import mc_predict
-from ..ops.kernels.sao_filter import sao_filter
+from ..ops.kernels.sao_filter import sao_ctb
 from ..ops.mc_tile import build_tables
 from ..ops.transform import residual_batch
 from ..packing import pack_frame
@@ -237,13 +239,8 @@ def _strip_filter(t, Ye, Cbe, Cre, x0, cfg, Ws):
                                       vertical=vertical, bitdepth=bd)
     if cfg.sao_enabled:
         with record_function("sao"):
-            outs = []
-            for ci, P in enumerate((Ye, Cbe, Cre)):
-                mode, aux, offs = plan_sao_compact(t, cfg.scfg, ci, xoff)
-                outs.append(sao_filter(P.contiguous(), mode.contiguous(),
-                                       aux.contiguous(), offs.contiguous(),
-                                       bitdepth=bd))
-            Ye, Cbe, Cre = outs
+            Ye, Cbe, Cre = (sao_ctb(P, t, cfg.scfg, ci, xoff, bitdepth=bd)
+                            for ci, P in enumerate((Ye, Cbe, Cre)))
     return (Ye[:, HALO_Y:HALO_Y + Ws], Cbe[:, HALO_C:HALO_C + Ws // 2],
             Cre[:, HALO_C:HALO_C + Ws // 2])
 

@@ -31,6 +31,17 @@ times ROOT's K1 wrapper `update_tile_table` on a seeded 4K frame into
 slot 5 of an 8-slot table (luma, then chroma), and K5's
 `build_tile_tables` (both launches) on seeded stacks of R = 2 1080p
 frames (the tile path's shape) and R = 8 4K frames into uint8 tables.
+
+    python3 libde265_tpu_torch/time_frames.py --k3 [ROOT] [TAG]
+
+times ROOT's whole SAO stage of the first ld4k_light P frame (its real
+grids, as frame_grids leaves them, over seeded random 4K planes): the
+three K3 wrapper calls `sao_ctb` where ROOT has them, else ROOT's
+planner `plan_sao_compact` and the compact-map wrapper `sao_filter`
+for each plane, as ROOT's frame program runs them; then each plane's
+share alone, beside the copy floor of that plane (one torch clone: the
+bytes K3 must move). Equal digests: the two checkouts computed the same
+planes.
 """
 import hashlib
 import os
@@ -163,9 +174,53 @@ def time_k1(dev, tag):
         torch.cuda.empty_cache()
 
 
+def time_k3(plans, dev, tag):
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+    from libde265_tpu_torch.convert import plan_from_numpy
+    from libde265_tpu_torch.frame_program import frame_grids
+    from libde265_tpu_torch.ops.kernels import sao_filter as k
+    from libde265_tpu_torch.packing import pack_frame, stream_cfg
+    cfg = replace(stream_cfg(plans, plans[0].sps), intra=(), intra_C=0)
+    g = frame_grids(plan_from_numpy(pack_frame(
+        plans[1], cfg, {plans[0].frame_id: 3, plans[1].frame_id: 5}), dev),
+        cfg)
+    rng = np.random.RandomState(2160)
+    planes = [torch.as_tensor(rng.randint(0, 256, s), dtype=torch.int32,
+                              device=dev)
+              for s in [(cfg.H, cfg.W)] + [(cfg.H // 2, cfg.W // 2)] * 2]
+    if hasattr(k, "sao_ctb"):
+        what = "K3 from the CTB parameters (sao_ctb)"
+
+        def plane(ci):
+            return k.sao_ctb(planes[ci], g, cfg.scfg, ci, bitdepth=8)
+    else:
+        from libde265_tpu_torch.ops.filter_plan import plan_sao_compact
+        what = "planner + K3 (plan_sao_compact + sao_filter)"
+
+        def plane(ci):
+            mode, aux, offs = plan_sao_compact(g, cfg.scfg, ci)
+            return k.sao_filter(planes[ci], mode.contiguous(),
+                                aux.contiguous(), offs.contiguous(),
+                                bitdepth=8)
+
+    def stage():
+        return [plane(ci) for ci in range(3)]
+    _report(tag, f"SAO stage of a 4K P frame, {what} x 3", stage, stage())
+    for ci in range(3):
+        _report(tag, f"SAO plane {ci} of a 4K P frame, {what}",
+                lambda: plane(ci), [plane(ci)])
+        # the copy floor: one PyTorch clone of the plane reads and writes
+        # the same bytes as K3 (the port never calls it)
+        _report(tag, f"copy yardstick, plane {ci} (torch clone)",
+                lambda: planes[ci].clone(), [planes[ci]])
+
+
 def main(argv):
-    mode = argv[0] if argv[:1] and argv[0] in ("--k1", "--k2", "--k4") \
-        else None
+    mode = argv[0] if argv[:1] and argv[0] in ("--k1", "--k2", "--k3",
+                                               "--k4") else None
     argv = argv[1:] if mode else argv
     root = os.path.abspath(argv[0]) if argv else \
         os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -186,6 +241,8 @@ def main(argv):
         return time_k2(plans, dev, tag)
     if mode == "--k1":
         return time_k1(dev, tag)
+    if mode == "--k3":
+        return time_k3(plans, dev, tag)
     (_, idr, _), (_, pframe, _) = frame_calls(plans, dev)
     idr()
     pframe()

@@ -24,7 +24,9 @@ def cuda():
 
 
 def _plans(name):
+    from libde265_tpu_torch import _build
     from libde265_tpu_torch.api import _parse
+    _build.ensure_frontend()        # a fresh checkout has no front end yet
     with open(os.path.join(DATA, name + ".bin"), "rb") as f:
         return _parse(f.read())
 
@@ -74,21 +76,78 @@ def test_k1_last_slot_matches_plain(cuda, H, W):
     _k1_case(cuda, H, W, 4, 3)
 
 
+def _k3_check(x, g, scfg, xoff, bitdepth, what):
+    """K3 on the card against sao_ctb_plain on the same card tensors,
+    every plane, exact; one launch a call."""
+    from libde265_tpu_torch.ops.kernels import sao_filter as k
+    for ci, P in enumerate(x):
+        n = k.sao_ctb.launches
+        got = k.sao_ctb(P, g, scfg, ci, xoff, bitdepth)
+        assert k.sao_ctb.launches == n + 1
+        want = k.sao_ctb_plain(P, g, scfg, ci, xoff, bitdepth)
+        assert got.shape == want.shape and torch.equal(got, want), \
+            (what, ci, int((got != want).sum()))
+
+
+def _planes(rng, shapes, bitdepth, dev):
+    return [torch.as_tensor(rng.randint(0, 1 << bitdepth, s),
+                            dtype=torch.int32, device=dev) for s in shapes]
+
+
 @pytest.mark.parametrize("name", ["p_cif_mixed", "i_deblk_sao"])
 def test_k3_matches_plain(cuda, name):
+    """K3 on a stream's real grids (the IDR's, as frame_grids leaves
+    them: the off grid bit-unpacked to int32) over random planes."""
     from libde265_tpu_torch.frame_program import frame_grids
-    from libde265_tpu_torch.ops.filter_plan import plan_sao_compact
-    from libde265_tpu_torch.ops.kernels import sao_filter as k
     cfg, t = _idr(name, cuda)
     g = frame_grids(t, cfg)
-    rng = np.random.RandomState(3)
+    x = _planes(np.random.RandomState(3), [(cfg.H, cfg.W)]
+                + [(cfg.H // 2, cfg.W // 2)] * 2, 8, cuda)
+    _k3_check(x, g, cfg.scfg, 0, 8, name)
+
+
+def test_k3_strip_matches_plain(cuda):
+    """K3 on one strip of p_tiles4_1080p_mv's first P frame: tile column
+    1 (x0 = 448), its real halo-extended grids and xoff = 432, which is
+    not a multiple of the CTB width."""
+    from dataclasses import replace
+    from libde265_tpu_torch.convert import plan_from_numpy
+    from libde265_tpu_torch.packing import stream_cfg
+    from libde265_tpu_torch.parallel.tile_shard import HALO_Y, split_strips
+    plans = _plans("p_tiles4_1080p_mv")
+    cfg = replace(stream_cfg(plans, plans[0].sps), intra=(), intra_C=0)
+    fid_slot = {p.frame_id: i for i, p in enumerate(plans)}
+    tsh, trep, x0w = split_strips(plans[1], cfg, fid_slot, 4)
+    t = plan_from_numpy(dict(trep, **{k: v[1] for k, v in tsh.items()}),
+                        cuda)
+    w = t["off"].shape[1] * 4
+    x = _planes(np.random.RandomState(5), [(cfg.H, w)]
+                + [(cfg.H // 2, w // 2)] * 2, 8, cuda)
+    _k3_check(x, t, cfg.scfg, int(x0w[1, 0]) - HALO_Y, 8, "strip 1")
+
+
+@pytest.mark.parametrize("xoff", [0, -16, 112, -14])
+def test_k3_random_matches_plain(cuda, xoff):
+    """K3 at 10 bits on seeded random grids (tests/test_torch_ops.py
+    _sao_case) of a 176x140 picture, whose chroma pitch (70) is not a
+    multiple of 4 samples, and on planes that are column views of wider
+    tensors (pitch != width, not 16-byte aligned). At xoff = -14 the
+    tiles' first columns are not multiples of 4 samples, so a 64x64 tile
+    takes 17 units a row, more than one round of its threads."""
+    from test_torch_ops import _sao_case
+    x = []
     for ci in range(3):
-        mode, aux, offs = (m.contiguous()
-                           for m in plan_sao_compact(g, cfg.scfg, ci))
-        x = torch.as_tensor(rng.randint(0, 256, mode.shape),
-                            dtype=torch.int32, device=cuda)
-        assert torch.equal(k.sao_filter(x, mode, aux, offs, 8),
-                           k.sao_filter_plain(x, mode, aux, offs, 8)), ci
+        xc, g, cfg = _sao_case(7, ci, xoff, 10, W=140)
+        x.append(torch.as_tensor(xc, device=cuda))
+    g = {k: torch.as_tensor(v, device=cuda) for k, v in g.items()}
+    _k3_check(x, g, cfg, xoff, 10, "contiguous")
+    views = []
+    for P in x:
+        wide = torch.zeros((P.shape[0], P.shape[1] + 3), dtype=P.dtype,
+                           device=cuda)
+        wide[:, 1:1 + P.shape[1]] = P
+        views.append(wide[:, 1:1 + P.shape[1]])
+    _k3_check(views, g, cfg, xoff, 10, "views")
 
 
 @pytest.mark.parametrize("name,holes", [("intra_104x72_q26", False),
@@ -184,7 +243,7 @@ def test_decode_on_card(cuda, name):
     from libde265_tpu_torch.api import decode_stream_native
     from libde265_tpu_torch.ops.kernels.mc_filter import mc_predict
     from libde265_tpu_torch.ops.kernels.mc_tables import update_tile_table
-    from libde265_tpu_torch.ops.kernels.sao_filter import sao_filter
+    from libde265_tpu_torch.ops.kernels.sao_filter import sao_ctb
     mf = {"intra_": "manifest.json", "adv_": "manifest_adv.json"}.get(
         name[:name.index("_") + 1], "manifest_inter.json")
     with open(os.path.join(DATA, mf)) as f:
@@ -192,14 +251,14 @@ def test_decode_on_card(cuda, name):
     with open(os.path.join(DATA, name + ".bin"), "rb") as f:
         data = f.read()
     n1, n2, n3 = (update_tile_table.launches, mc_predict.launches,
-                  sao_filter.launches)
+                  sao_ctb.launches)
     pics = decode_stream_native(data, device="cuda")
     assert len(pics) == m["frames"]
     for i, pic in enumerate(pics):
         got = [pic.plane_md5(c) for c in range(3)]
         assert got == [m["md5"][i][k] for k in ("y", "u", "v")], i
     assert update_tile_table.launches - n1 == 2 * len(pics)
-    assert sao_filter.launches >= n3
+    assert sao_ctb.launches >= n3
     if not name.startswith("intra_"):
         assert mc_predict.launches - n2 >= 2
 

@@ -14,11 +14,32 @@ import torch
 DATA = os.path.join(os.path.dirname(__file__), "data")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STREAMS = ["p_mv", "b_mv", "p_sao", "p_deblk", "intra_64x64_q27",
-           "i_deblk_sao", "p_wp", "adv_b_wp_2ref"]
+           "i_deblk_sao", "p_wp", "adv_b_wp_2ref",
+           # every other small vector that check_slice accepts
+           "b_2pu_merge", "b_cabacinit", "b_mixed", "b_mvdl1zero",
+           "b_reflist_mod", "i_strong32", "p_2pu", "p_2pu_amp",
+           "p_2pu_filters", "p_2pu_merge", "p_2ref", "p_bigmv",
+           "p_cabacinit", "p_cif_mixed", "p_cip", "p_cra", "p_cu8",
+           "p_depslices", "p_filters", "p_hash_sei", "p_ltr", "p_mixed",
+           "p_mixedlf", "p_mvres", "p_qpdelta", "p_qpoff", "p_reflist_mod",
+           "p_sdh", "p_skip", "p_slices2", "p_slices2wpp", "p_temporal",
+           "p_tiles22", "p_tiles2_mv", "p_tiles2_mv_nolf", "p_tiles3r_mv",
+           "p_tiles4_mv", "p_tiles8_mv", "p_tiles8nu_mv", "p_tiles_nolf",
+           "p_tmvp", "p_ttsplit", "p_wppx", "adv_w1_wpp", "adv_w1_wpp_dep",
+           "rext_420_nxn", "rxt_irdpcm", "rxt_rice", "rxt_rot", "rxt_tsctx",
+           "intra_104x72_q26", "intra_64x64_q37", "intra_cif_maxcb64",
+           "intra_cif_q20_nxn", "intra_cif_q30"]
+# accepted vectors with frames that frame_compatible rejects (range-
+# extension residual tools, TU-level chroma QP offsets): the numpy
+# reference reconstructs those into the device DPB
+HOST_FRAMES = {"adv_rot_tsctx_wpp": 1, "adv_cqo_tiles": 4, "rxt_cqo": 4,
+               "rxt_kitchen": 4, "rxt_smooth_off": 3}
 
 
 def _manifest(name):
-    mf = {"intra_": "manifest.json", "adv_": "manifest_adv.json"}.get(
+    mf = {"intra_": "manifest.json", "adv_": "manifest_adv.json",
+          "rext_": "manifest_rext.json",
+          "rxt_": "manifest_rext_tools.json"}.get(
         name[:name.index("_") + 1], "manifest_inter.json")
     with open(os.path.join(DATA, mf)) as f:
         return json.load(f)[name]
@@ -31,7 +52,7 @@ def _data(name):
 
 @pytest.mark.parametrize("name,host_frames",
                          [(n, 0) for n in STREAMS]
-                         + [("adv_rot_tsctx_wpp", 1)])
+                         + list(HOST_FRAMES.items()))
 def test_decode_md5(name, host_frames):
     """host_frames: frames frame_compatible rejects (adv_rot_tsctx_wpp
     uses transform-skip rotation in one frame), which the numpy reference

@@ -216,7 +216,7 @@ def test_sao_planner_and_k3(seed):
     from libde265_tpu.ops.sao_jax import sao_apply
     from libde265_tpu.ops.pallas.sao_filter import sao_pallas
     from libde265_tpu_torch.ops import filter_plan as FP
-    from libde265_tpu_torch.ops.kernels.sao_filter import sao_filter
+    from libde265_tpu_torch.ops.kernels.sao_filter import sao_filter_plain
     rng = np.random.RandomState(seed)
     nctby, nctbx, S1 = 3, 4, 4
     H, W = nctby * 64 - 16, nctbx * 64
@@ -231,12 +231,77 @@ def test_sao_planner_and_k3(seed):
         mp = FP.plan_sao_compact(gp, cfg_s, ci)
         for a, b, what in zip(mp, mj, ("mode", "aux", "offs")):
             _eq(a, b, f"plan_sao_compact {what} plane {ci}")
-        got = sao_filter(torch.as_tensor(x), *(m.contiguous() for m in mp),
-                         bitdepth=8)
+        got = sao_filter_plain(torch.as_tensor(x),
+                               *(m.contiguous() for m in mp), bitdepth=8)
         _eq(got, sao_pallas(jnp.asarray(x), *mj, bitdepth=8,
                             interpret=True), f"K3 vs sao_pallas {ci}")
         _eq(got, sao_apply(jnp.asarray(x), *FJ.plan_sao_device(
             gj, cfg_s, ci), bitdepth=8), f"K3 vs sao_apply {ci}")
+
+
+def _sao_case(seed, ci, xoff, bitdepth, W=None):
+    """Seeded inputs of K3 for plane ci: a picture of 3x4 64x64 CTBs cut to
+    176 x W (default 240: the last CTB row and column partial), 4 slice
+    rows (row 0 with SAO off for luma, row 1 on for both), random
+    pcm/tq-bypass blocks and one CTB that is bypass everywhere (an edge
+    CTB of slice row 1). xoff = 0: the whole frame; otherwise the
+    halo-extended strip of a tile column 128 luma samples wide whose first
+    column sits at global luma x = xoff (the strip-local off grid).
+    Returns (x (Hs, Ws) int32, numpy grids, scfg)."""
+    rng = np.random.RandomState(seed)
+    nctby, nctbx, S1 = 3, 4, 4
+    H, W = nctby * 64 - 16, W or nctbx * 64 - 16
+    ws = W if xoff == 0 else 128 + 32
+    g = _grids(rng, nctby, nctbx, S1, H // 4, ws // 4)
+    g["sh_sao_luma"][:2] = (0, 1)
+    g["sh_sao_chroma"][:2] = (1, 1)
+    cx = max(xoff, 0) // 64 + 1
+    j0 = (64 * cx - xoff) // 4
+    g["off"][16:32, j0:j0 + 16] = 1
+    g["sidx"][1, cx] = 1
+    g["sao_type"][1, cx, :] = 2
+    sub = 1 if ci == 0 else 2
+    x = rng.randint(0, 1 << bitdepth, (H // sub, ws // sub)).astype(np.int32)
+    return x, g, (6, 1, H, W, 2, 2)
+
+
+@pytest.mark.parametrize("bitdepth", [8, 10])
+@pytest.mark.parametrize("xoff", [0, -16, 112])
+@pytest.mark.parametrize("ci", [0, 1, 2])
+def test_sao_ctb_plain_matches_jax(ci, xoff, bitdepth):
+    """K3's new contract on the CPU: sao_ctb (its plain version here,
+    plan_sao_compact + sao_filter_plain) against the JAX plan_sao_compact
+    + sao_pallas in interpret mode and plan_sao_device + sao_apply, exact.
+    xoff = -16 is the first strip of a tile column (halo left of the
+    picture), 112 a strip that runs past the picture's partial last CTB
+    column; neither is a multiple of the CTB width. In a strip, the
+    plane's outermost columns are halo that the decoder crops, and their
+    edge-offset neighbours lie outside the plane: the port reads them
+    clamped, sao_pallas wrapped and sao_apply zero-padded, so those two
+    columns are left out of the comparison for xoff != 0."""
+    import jax.numpy as jnp
+    from libde265_tpu.ops import filter_plan_jax as FJ
+    from libde265_tpu.ops.pallas.sao_filter import sao_pallas
+    from libde265_tpu.ops.sao_jax import sao_apply
+    from libde265_tpu_torch.ops.kernels.sao_filter import (sao_ctb,
+                                                           sao_ctb_plain)
+    x, g, cfg = _sao_case(100 * ci + bitdepth, ci, xoff, bitdepth)
+    gj = {k: jnp.asarray(v) for k, v in g.items()}
+    gp = {k: torch.as_tensor(v) for k, v in g.items()}
+    n = sao_ctb.launches
+    got = sao_ctb(torch.as_tensor(x), gp, cfg, ci, xoff, bitdepth)
+    assert sao_ctb.launches == n
+    _eq(got, sao_ctb_plain(torch.as_tensor(x), gp, cfg, ci, xoff, bitdepth),
+        "sao_ctb vs sao_ctb_plain")
+    cols = slice(None) if xoff == 0 else slice(1, -1)
+    xj = jnp.asarray(x)
+    want = sao_pallas(xj, *FJ.plan_sao_compact(gj, cfg, ci, xoff),
+                      bitdepth=bitdepth, interpret=True)
+    _eq(got[:, cols], np.asarray(want)[:, cols], "K3 vs sao_pallas")
+    want = sao_apply(xj, *FJ.plan_sao_device(gj, cfg, ci, xoff),
+                     bitdepth=bitdepth)
+    _eq(got[:, cols], np.asarray(want)[:, cols], "K3 vs sao_apply")
+    assert not np.array_equal(got.numpy(), x)      # SAO changed samples
 
 
 @pytest.mark.parametrize("name", ["p_deblk", "b_mv", "p_cif_mixed"])

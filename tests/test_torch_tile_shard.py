@@ -274,12 +274,19 @@ def test_decode_all_takes_strips_for_every_inter_frame():
                                        ("p_tiles8nu_mv", 8)])
 def test_final_state_matches_jax_sharded(name, ndev):
     """Same plans through the JAX ShardedStreamDecoder on the virtual
-    CPU mesh and the port's: identical DPB stacks, persistent tile tables
-    and slot assignment, sample for sample."""
+    CPU mesh and the port's: identical DPB stacks and slot assignment,
+    sample for sample. The JAX strip program leaves the persistent tile
+    tables stale for the frames it decodes (ROADMAP queue 3); the port's
+    hold what the JAX single-device decoder keeps, every slot's tables
+    built from its DPB frame, so they are held against the JAX
+    update_tables applied to each slot of the JAX DPB."""
     import jax
+    import jax.numpy as jnp
     from jax.sharding import Mesh
+    from libde265_tpu import frame_program as J
     from libde265_tpu.device_stream import ShardedStreamDecoder as JaxDec
     from libde265_tpu_torch.device_stream import ShardedStreamDecoder
+    from libde265_tpu_torch.packing import REF_SLOTS
     plans = _plans(name)
     jd = JaxDec(plans, plans[0].sps,
                 Mesh(np.array(jax.devices()[:ndev]), ("t",)))
@@ -288,9 +295,44 @@ def test_final_state_matches_jax_sharded(name, ndev):
     pd = ShardedStreamDecoder(plans, plans[0].sps, ["cpu"] * ndev)
     pd.decode_all()
     assert pd.slot_of == jd.slot_of
-    for what, a, b in zip(("dy", "dcb", "dcr", "ty", "tc"), pd.state(),
-                          (jd.dy, jd.dcb, jd.dcr, jd.ty, jd.tc)):
+    for what, a, b in zip(("dy", "dcb", "dcr"), pd.state(),
+                          (jd.dy, jd.dcb, jd.dcr)):
         assert np.array_equal(a.numpy(), np.asarray(b)), what
+    ty, tc = J.init_tables(jd.cfg)
+    for s in range(REF_SLOTS):
+        ty, tc = J.update_tables(ty, tc, *(jnp.asarray(p[s]) for p in
+                                           (jd.dy, jd.dcb, jd.dcr)),
+                                 np.int32(s), jd.cfg)
+    for what, a, b in (("ty", pd.ty, ty), ("tc", pd.tc, tc)):
+        assert np.array_equal(a.numpy(), np.asarray(b)), what
+
+
+def test_strip_frames_refresh_tile_tables():
+    """After every strip frame, the persistent MC tile tables at the
+    frame's slot equal update_tables applied to that slot's DPB planes in
+    fresh tables, as the single-device decoder leaves them: a later frame
+    with intra CUs runs the single-device program and predicts from
+    them."""
+    from libde265_tpu_torch.device_stream import ShardedStreamDecoder
+    from libde265_tpu_torch.frame_program import init_tables, update_tables
+    from libde265_tpu_torch.packing import REF_SLOTS
+    plans = _plans("p_tiles2_mv")
+    dec = ShardedStreamDecoder(plans, plans[0].sps, ["cpu", "cpu"])
+    n = 0
+    for i, plan in enumerate(plans):
+        ns = dec.n_strip_frames
+        dec.decode_plan(plan, i)
+        if dec.n_strip_frames == ns:
+            continue
+        s = dec.slot_of[plan.frame_id]
+        ty, tc = init_tables(dec.cfg, "cpu")
+        update_tables(ty, tc, dec.dy[s], dec.dcb[s], dec.dcr[s], s, dec.cfg)
+        for what, got, want in (("ty", dec.ty, ty), ("tc", dec.tc, tc)):
+            r = want.shape[0] // REF_SLOTS
+            assert torch.equal(got[s * r:(s + 1) * r],
+                               want[s * r:(s + 1) * r]), (what, i, s)
+        n += 1
+    assert n == len(plans) - 1
 
 
 def test_sharded_cuda_request_raises_without_a_card():
