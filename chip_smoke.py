@@ -12,8 +12,9 @@ card.
    time, without the host's enqueue of each call), and the output of
    every timed call is compared:
      K1 tile-table update: one 4K luma and one 4K chroma slot update
-        into an 8-slot table (other slots pre-filled, must stay as they
-        were), then one timed call into each of the 8 slots; beside it
+        into an 8-slot uint8 table (other slots pre-filled, must stay as
+        they were), then one timed call into each of the 8 slots (the
+        int16 tables of 10-bit streams in step 10); beside it
         the library yardstick k1_library (one strided copy_ and a zero_,
         equal to the plain version; the port never calls it);
      K2 MC: the first ld4k_light P frame's real grids over seeded random
@@ -81,14 +82,30 @@ card.
    (transform-skip, transquant bypass, PCM, scaling lists; PART_B)
    through decode_stream_native(data, device="cuda"), counters zeroed
    before each: every frame MD5-equal, exactly the host frames that
-   frame_compatible rejects, and K4 launched in each.
+   frame_compatible rejects, and K4 launched in each;
+10. 10- and 12-bit 4:2:0: decodes tests/data/ld4k_main10.bin (3840x2160
+   HEVC Main 10, IDR + 8 P frames) through decode_stream_native(data,
+   device="cuda"), counters zeroed just before: every frame MD5-equal to
+   manifest_torch.json (uint16 pictures), no host frame, K1 = 2 a frame,
+   K2 = 2 a P frame, K3 = 3 a frame, K4 = 2; then the pipelined check of
+   phase 8 on it; then the six small 10/12-bit vectors (HBD), MD5-equal,
+   with exactly the host frames frame_compatible rejects; then K1 into
+   int16 tables, K2, K3 and K4 on that stream's own inputs, each exact
+   against its plain version and timed as in step 3;
+11. decodes gop1080p through the GOP-sharded decoder
+   (decode_stream_native(..., gop_devices=["cuda:0"] * 4): one closed
+   GOP per entry, a CUDA stream each), counters zeroed before: all 96
+   frames MD5-equal to manifest_big.json, 16 GOPs, K4 = 32 and K1/K2/K3
+   equal to decode_all's in phase 8; its wall beside one decoder's
+   through the same entry point.
 
 Any failure exits non-zero. The last stdout line is the JSON
 {"ok": true, "device": {...}}; the line before it is the card's name and
 power limit, and the one before that lists each kernel with its time,
 its plain version's time, its bound (the larger of its bytes over
 3.35 TB/s and its operations over the card's peak rate for them) and,
-for K1 and K5, the library yardstick's time.
+for K1 and K5, the library yardstick's time; the rows of step 10 carry
+the launches of the Main 10 decode.
 
     python3 chip_smoke.py
 """
@@ -109,6 +126,18 @@ TILES = [("p_tiles2_mv", 2), ("p_tiles2_mv_nolf", 2), ("p_tiles3r_mv", 3),
          ("p_tiles4_mv", 4), ("p_tiles8_mv", 8), ("p_tiles8nu_mv", 8),
          (TILE_STREAM, 4)]
 GOP_STREAM = "gop1080p"
+# 3840x2160 10-bit 4:2:0 (HEVC Main 10), IDR + 8 P frames
+# (tools/gen_main10_4k_stream.py; golden in manifest_torch.json)
+MAIN10 = "ld4k_main10"
+# the committed 4:2:0 vectors above 8 bits -> (manifest, frames on the
+# numpy host path: those frame_compatible rejects, TU-level chroma QP
+# offsets)
+HBD = {"p_10bit": ("manifest_inter.json", 0),
+       "rext_420_inter_12b": ("manifest_rext.json", 0),
+       "rxt_cqo_10b": ("manifest_rext_tools.json", 3),
+       "rxt_rice_scaling_10b": ("manifest_rext_tools.json", 0),
+       "adv_cra_scaling_10b_amp": ("manifest_adv.json", 0),
+       "adv_wpp_dep10_scaling": ("manifest_adv.json", 0)}
 # the residual tools at 4:2:0: vector -> (manifest, frames on the numpy
 # host path, i.e. the frames frame_compatible rejects: explicit RDPCM)
 PART_B = {n: ("manifest_inter.json", 0) for n in (
@@ -228,22 +257,31 @@ def k5_library(py, pc, dt):
     return out
 
 
-def check_k1(dev, rng, H=2160, W=3840):
+def check_k1(dev, rng, H=2160, W=3840, frame=None, bitdepth=8, label=""):
+    """K1 against update_tile_table_plain into an 8-slot table of random
+    rows (uint8 at 8 bits, int16 above): seeded random planes, or the
+    decoded (Y, Cb, Cr) int16 planes of `frame`."""
     import torch
     from libde265_tpu_torch.ops.kernels import mc_tables as k
     from libde265_tpu_torch.ops.mc_tile import pad_plane
     from libde265_tpu_torch.packing import (PAD_C, PAD_Y, REF_SLOTS,
                                             n_tiles_c, n_tiles_y)
+    dt = torch.uint8 if bitdepth == 8 else torch.int16
     res = []
     for T, P, (h, w), pad, (nty, ntx) in (
             (16, 1, (H, W), PAD_Y, n_tiles_y(H, W)),
             (8, 2, (H // 2, W // 2), PAD_C, n_tiles_c(H // 2, W // 2))):
-        planes = torch.as_tensor(rng.randint(0, 256, (P, h, w)),
-                                 dtype=torch.int16, device=dev)
+        if frame is None:
+            planes = torch.as_tensor(rng.randint(0, 1 << bitdepth,
+                                                 (P, h, w)),
+                                     dtype=torch.int16, device=dev)
+        else:
+            planes = torch.stack(frame[:1] if P == 1 else frame[1:])
         padded = pad_plane(planes, pad).contiguous()
         init = torch.as_tensor(
-            rng.randint(0, 256, (REF_SLOTS * nty * ntx, P * T * T)),
-            dtype=torch.uint8, device=dev)
+            rng.randint(0, 1 << bitdepth, (REF_SLOTS * nty * ntx,
+                                           P * T * T)),
+            dtype=dt, device=dev)
         got, want = init.clone(), init.clone()
         k.update_tile_table(got, padded, 3, T)
         k.update_tile_table_plain(want, padded, 3, T)
@@ -266,11 +304,12 @@ def check_k1(dev, rng, H=2160, W=3840):
                       [k.update_tile_table_plain(init.clone(), padded, 3, T)])
         lms = cuda_time(lambda: k1_library(lib, padded, 5, T), 20)
         # reads the padded planes once, writes one slot of table rows
-        bnd = bound(padded.nbytes + nty * ntx * P * T * T, 0)
+        bnd = bound(padded.nbytes + nty * ntx * P * T * T * init
+                    .element_size(), 0)
         res.append((T, err, ms, pms, bnd, lms))
-        log(f"K1 T={T} P={P} {h}x{w}: equal; kernel {ms:.4f} ms, plain "
-            f"{pms:.4f} ms, library (strided copy_ + zero_) {lms:.4f} ms, "
-            f"bound {bnd[0]:.4f} ms ({bnd[1]})")
+        log(f"K1{label} T={T} P={P} {h}x{w} {dt}: equal; kernel "
+            f"{ms:.4f} ms, plain {pms:.4f} ms, library (strided copy_ + "
+            f"zero_) {lms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
     return res
 
 
@@ -651,15 +690,11 @@ def k4_launches(k, name, planes, kw, want, reps):
     return ms / reps, err
 
 
-def check_k4(dev, rng, cfg4k, t4k):
-    """K4 against intra_scan_plain: the intra_cif_q30 IDR (and its luma
-    with availability holes), the whole 4K IDR of the main stream and the
-    IDR of the 1080p tile stream, both plane groups each; 20 timed
-    launches per case, every one compared exactly with the plain run."""
-    import torch
+def k4_cases(dev, rng, cfg4k, t4k):
+    """K4's cases: the intra_cif_q30 IDR (and its luma with availability
+    holes), the whole 4K IDR of the main stream and the IDR of the 1080p
+    tile stream, both plane groups each."""
     from libde265_tpu_torch.intra_fused import scan_groups
-    from libde265_tpu_torch.ops.kernels import intra_scan as k
-    from libde265_tpu_torch.profile_frames import wavefront_steps
     cases = []
     _, cif = parse("intra_cif_q30")
     cfgc, tc = idr_inputs(cif, dev)
@@ -674,10 +709,22 @@ def check_k4(dev, rng, cfg4k, t4k):
                             (TILE_STREAM, idr_inputs(tplans, dev))):
         for idx, kw in scan_groups(t, cfg):
             cases.append((f"{label} IDR planes {idx}", cfg, idx, kw))
+    return cases
+
+
+def check_k4(dev, rng, cases):
+    """K4 against intra_scan_plain on each case (name, cfg, plane
+    indices, wrapper kwargs), over seeded planes of cfg.bitdepth bits; 20
+    timed launches per case, every one compared exactly with the plain
+    run."""
+    import torch
+    from libde265_tpu_torch.ops.kernels import intra_scan as k
+    from libde265_tpu_torch.profile_frames import wavefront_steps
     res = []
     for name, cfg, idx, kw in cases:
         dims = [(cfg.H, cfg.W)] + [(cfg.H // 2, cfg.W // 2)] * 2
-        planes = [torch.as_tensor(rng.randint(0, 256, dims[i]),
+        planes = [torch.as_tensor(rng.randint(0, 1 << cfg.bitdepth,
+                                              dims[i]),
                                   dtype=torch.int32, device=dev)
                   for i in idx]
         want = [p.clone() for p in planes]
@@ -702,6 +749,84 @@ def check_k4(dev, rng, cfg4k, t4k):
             f"{kms:.4f} ms and band_waits {wms:.4f} ms; plain {pms:.1f} ms (one run), bound "
             f"{bnd[0]:.4f} ms ({bnd[1]})")
     return res
+
+
+def check_hbd_kernels(dev, rng, plans):
+    """K1, K2, K3 and K4 on the Main 10 stream's own inputs, each against
+    its plain version, exact, timed as the 8-bit cases: the IDR decoded
+    through the frame program into a fresh decoder's DPB; K1 writes its
+    decoded planes into an 8-slot int16 table; K2 predicts the first P
+    frame's real grids from the decoder's real int16 tables; K3 filters
+    the decoded IDR's planes (10-bit samples) with the first P frame's
+    real SAO parameters; K4 reconstructs the whole IDR, both plane groups,
+    over seeded 10-bit planes. Returns the rows of K1, K2, K3, K4."""
+    import torch
+    from dataclasses import replace
+    from libde265_tpu_torch.convert import plan_from_numpy
+    from libde265_tpu_torch.device_stream import DeviceStreamDecoder
+    from libde265_tpu_torch.frame_program import frame_grids, mc_inputs
+    from libde265_tpu_torch.intra_fused import scan_groups
+    from libde265_tpu_torch.ops.kernels import mc_filter as k2
+    from libde265_tpu_torch.ops.kernels import sao_filter as k3
+    from libde265_tpu_torch.ops.mc_tile import mc_predict_plain
+    from libde265_tpu_torch.packing import pack_frame
+    dec = DeviceStreamDecoder(plans, plans[0].sps, dev)
+    dec.decode_plan(plans[0], 0)
+    cfg, bd = dec.cfg_scan, dec.cfg.bitdepth
+    s0 = dec.slot_of[plans[0].frame_id]
+    frame = [p[s0] for p in (dec.dy, dec.dcb, dec.dcr)]
+    r1 = check_k1(dev, rng, cfg.H, cfg.W, frame, bd, f" {MAIN10}")
+
+    t = pack_frame(plans[1], cfg, {plans[0].frame_id: s0,
+                                   plans[1].frame_id: (s0 + 1) % 8})
+    g = frame_grids(plan_from_numpy(t, dev), cfg)
+    grids = mc_inputs(g, cfg)
+    r2 = []
+    for tab in (dec.ty, dec.tc):
+        what = f"{MAIN10} P frame " + ("luma" if tab.shape[1] == 256
+                                       else "Cb|Cr")
+        args = (tab, (cfg.H, cfg.W), *grids, bd, cfg.has_bi)
+        got = k2.mc_predict(*args)
+        want = mc_predict_plain(*args)
+        torch.cuda.synchronize()
+        require_equal(f"K2 {what}", got, want)
+        ms, outs = graph_ms(lambda: k2.mc_predict(*args), 20)
+        for i, o in enumerate(outs):
+            require_equal(f"K2 {what} timed call {i}", o, want)
+        del outs
+        pms = cuda_time(lambda: mc_predict_plain(*args), 3)
+        bnd = k2_bound(tab, (cfg.H, cfg.W), *grids, got, cfg.has_bi)
+        r2.append((what, max_abs_err(got, want), ms, pms, bnd))
+        log(f"K2 {what} ({int(grids[-1].sum())} inter blocks, {tab.dtype} "
+            f"tables): equal; kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+            f"bound {bnd[0]:.4f} ms ({bnd[1]})")
+
+    r3 = []
+    for ci, P in enumerate(frame):
+        x = P.to(torch.int32).contiguous()
+        args = (x, g, cfg.scfg, ci, 0, bd)
+        got = k3.sao_ctb(*args)
+        want = k3.sao_ctb_plain(*args)
+        torch.cuda.synchronize()
+        what = f"{MAIN10} P frame plane {ci}"
+        require_equal(f"K3 {what}", [got], [want])
+        ms, outs = graph_ms(lambda: k3.sao_ctb(*args), 20)
+        for i, o in enumerate(outs):
+            require_equal(f"K3 {what} timed call {i}", [o], [want])
+        del outs
+        pms = cuda_time(lambda: k3.sao_ctb_plain(*args), 3)
+        bnd = k3_bound(x, g, ci)
+        r3.append((what, max_abs_err([got], [want]), ms, pms, bnd))
+        log(f"K3 {what} {tuple(x.shape)} ({int((want != x).sum())} samples "
+            f"changed, {bd} bits): equal; kernel {ms:.4f} ms, plain "
+            f"{pms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
+    del dec, frame, g, grids
+    torch.cuda.empty_cache()
+
+    cfgi, ti = idr_inputs(plans, dev)
+    r4 = check_k4(dev, rng, [(f"{MAIN10} IDR planes {idx}", cfgi, idx, kw)
+                             for idx, kw in scan_groups(ti, cfgi)])
+    return r1, r2, r3, r4
 
 
 def frame_times(dev, plans):
@@ -736,7 +861,8 @@ def check_native_blob(plans):
     return sum(a.nbytes for a in want.values())
 
 
-def check_pipelined(name, plans, counters, dev, sync_debug=False):
+def check_pipelined(name, plans, counters, dev, sync_debug=False,
+                    manifest="manifest_big.json"):
     """decode_all under the slot policy of the throughput mode (outputs
     not pinned) as a warm-up, decode_all_pipelined(keep_outputs=False),
     then decode_all again, on the same plans, counters zeroed before
@@ -803,7 +929,7 @@ def check_pipelined(name, plans, counters, dev, sync_debug=False):
                           ref.state()):
         if not torch.equal(a, b):
             fail(f"{name}: pipelined {what} != decode_all's")
-    with open(os.path.join(DATA, "manifest_big.json")) as f:
+    with open(os.path.join(DATA, manifest)) as f:
         man = json.load(f)[name]
     nres = 0
     for i, p in enumerate(plans):
@@ -884,7 +1010,7 @@ def main():
     _, tile_plans = parse(TILE_STREAM)
     k3 = check_k3(dev, rng, plans, tile_plans)
     torch.cuda.empty_cache()
-    k4 = check_k4(dev, rng, cfg4k, t4k)
+    k4 = check_k4(dev, rng, k4_cases(dev, rng, cfg4k, t4k))
     del t4k
     torch.cuda.empty_cache()
     k5 = check_k5(dev, rng, tile_plans)
@@ -1027,6 +1153,64 @@ def main():
         if ln[3] < 1:
             fail(f"{name}: K4 launched {ln[3]} times")
 
+    # ---- 10- and 12-bit 4:2:0: the 4K Main 10 stream through the user's
+    # entry point, then pipelined, then the small vectors
+    data10, plans10 = parse(MAIN10)
+    p10, st10, ln10, wall10 = decode(MAIN10, data10, "manifest_torch.json")
+    n10 = len(p10)
+    log(f"decode {MAIN10}: {n10} frames {p10[0].width}x{p10[0].height} "
+        f"{p10[0].planes[0].dtype} MD5-equal to manifest_torch.json; "
+        f"n_host_frames {st10['n_host_frames']}; parse "
+        f"{st10['parse_s']:.3f} s, pack {st10['pack_s']:.3f} s, device "
+        f"decode incl. pack and download {st10['decode_s']:.3f} s; wall "
+        f"{wall10:.3f} s = {n10 / wall10:.2f} fps; launches K1 {ln10[0]}, "
+        f"K2 {ln10[1]}, K3 {ln10[2]}, K4 {ln10[3]}")
+    want10 = [2 * n10, 2 * (n10 - 1), 3 * n10, 2]
+    if st10["n_host_frames"] or ln10[:4] != want10:
+        fail(f"{MAIN10}: {st10['n_host_frames']} host frames, launches "
+             f"{ln10[:4]}, want 0 and {want10}")
+    pl10 = check_pipelined(MAIN10, plans10, counters[:4], dev,
+                           manifest="manifest_torch.json")
+    if pl10[3] != want10:
+        fail(f"pipelined {MAIN10}: launches {pl10[3]}, want {want10}")
+    for name, (manifest, nhost) in HBD.items():
+        with open(os.path.join(DATA, name + ".bin"), "rb") as f:
+            p, s_, ln, _ = decode(name, f.read(), manifest)
+        rejected = sum(not frame_compatible(q) for q in parse(name)[1])
+        log(f"decode {name}: {len(p)} frames at {p[0].plan.sps.BitDepthY} "
+            f"bits MD5-equal to {manifest}; n_host_frames "
+            f"{s_['n_host_frames']} (frame_compatible rejects {rejected}); "
+            f"launches K1 {ln[0]}, K2 {ln[1]}, K3 {ln[2]}, K4 {ln[3]}")
+        if s_["n_host_frames"] != nhost or rejected != nhost:
+            fail(f"{name}: {s_['n_host_frames']} host frames, "
+                 f"frame_compatible rejects {rejected}, want {nhost}")
+    k1h, k2h, k3h, k4h = check_hbd_kernels(dev, rng, plans10)
+    del plans10
+    torch.cuda.empty_cache()
+
+    # ---- the GOP-sharded decoder: gop1080p, one GOP per entry of
+    # ["cuda:0"] * 4 (a CUDA stream each), against decode_all's launches
+    with open(os.path.join(DATA, GOP_STREAM + ".bin"), "rb") as f:
+        gdata = f.read()
+    gp, gst, gln, gwall = decode(GOP_STREAM, gdata, "manifest_big.json",
+                                 gop_devices=["cuda:0"] * 4)
+    if gst["n_gops"] != 16 or gst["n_host_frames"] \
+            or gln[:4] != list(gl[3]) or gln[3] != 32:
+        fail(f"GOP decoder on {GOP_STREAM}: {gst['n_gops']} GOPs, "
+             f"{gst['n_host_frames']} host frames, launches {gln[:4]}; "
+             f"want 16, 0 and decode_all's {gl[3]} with K4 32")
+    _, sst, _, swall = decode(GOP_STREAM, gdata, "manifest_big.json")
+    log(f"GOP decoder {GOP_STREAM}: {len(gp)} frames in {gst['n_gops']} "
+        f"GOPs on ['cuda:0'] * 4 MD5-equal to manifest_big.json; launches "
+        f"K1 {gln[0]}, K2 {gln[1]}, K3 {gln[2]}, K4 {gln[3]}, equal to "
+        f"decode_all's; wall {gwall:.3f} s = {len(gp) / gwall:.2f} fps "
+        f"(parse {gst['parse_s']:.3f} s, decode incl. pack and download "
+        f"{gst['decode_s']:.3f} s); decode_stream_native with one decoder "
+        f"{swall:.3f} s = {len(gp) / swall:.2f} fps (parse "
+        f"{sst['parse_s']:.3f} s, decode {sst['decode_s']:.3f} s); phase "
+        f"8, parse and downloads excluded: decode_all {gl[0]:.3f} s, "
+        f"decode_all_pipelined {gl[1]:.3f} s")
+
     ms_i, ms_p = frame_times(dev, plans)
     log(f"frame program (CUDA events): 4K IDR {ms_i:.3f} ms, 4K P frame "
         f"{ms_p:.3f} ms")
@@ -1067,6 +1251,18 @@ def main():
         row(f"K2 MC, strip form ({TILE_STREAM} P frame strip 1 luma)",
             "mc_filter.cu", "libde265_tpu/ops/pallas/mc_filter.py:67",
             tln[1], k2s, k2s[0]),
+        row(f"K1 tile-table update, int16 table ({MAIN10} 4K luma slot)",
+            "mc_tables.cu", "libde265_tpu/ops/pallas/mc_tables.py:263",
+            ln10[0], k1h, k1h[0]),
+        row(f"K2 MC, 10-bit ({MAIN10} P frame luma, int16 tables)",
+            "mc_filter.cu", "libde265_tpu/ops/pallas/mc_filter.py:67",
+            ln10[1], k2h, k2h[0]),
+        row(f"K3 SAO, 10-bit ({MAIN10} P frame luma plane)",
+            "sao_filter.cu", "libde265_tpu/ops/pallas/sao_filter.py:87",
+            ln10[2], k3h, k3h[0]),
+        *(row(f"K4 intra scan, 10-bit ({MAIN10} IDR {grp}, whole frame)",
+              "intra_scan.cu", "libde265_tpu/ops/pallas/intra_scan.py:502",
+              ln10[3], k4h, r) for grp, r in zip(("luma", "Cb|Cr"), k4h)),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi[0])

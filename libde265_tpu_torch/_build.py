@@ -8,8 +8,9 @@ rebuilds and an unchanged one loads from build/. No PyTorch headers are included
 which keeps a cold build to seconds (torch.utils.cpp_extension.load
 takes minutes for the same kernels).
 
-Front end: native/libhevc_frontend.so (gitignored) is built with
-`make -C native` when a fresh checkout lacks it.
+Front end: native/libhevc_frontend.so (gitignored) is built by
+ensure_frontend when a fresh checkout lacks it (the repo's root
+conftest.py calls it once before the tests start).
 """
 import ctypes
 import fcntl
@@ -18,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 import time
 
@@ -118,20 +120,33 @@ def check_launch(name, err):
                            f"{err}")
 
 
-def ensure_frontend():
-    """Build native/libhevc_frontend.so when it is missing."""
-    so = os.path.join(NATIVE, "libhevc_frontend.so")
+def ensure_frontend(native=NATIVE):
+    """Path of `native`/libhevc_frontend.so, built first when it is
+    missing. The build runs `make` on copies of native/Makefile and
+    frontend.cc in a temporary directory under build/, under a lock
+    shared by every process of this checkout, and the result is renamed
+    into place: no process ever sees a partly written library. A failed
+    `make` raises."""
+    so = os.path.join(native, "libhevc_frontend.so")
     if os.path.exists(so):
         return so
     os.makedirs(BUILD, exist_ok=True)
-    # one build at a time across processes (parallel test workers)
     with open(os.path.join(BUILD, "frontend.lock"), "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
-        if not os.path.exists(so):
-            r = subprocess.run(["make", "-C", NATIVE], capture_output=True,
+        if os.path.exists(so):
+            return so
+        with tempfile.TemporaryDirectory(dir=BUILD) as tmp:
+            for f in ("Makefile", "frontend.cc"):
+                shutil.copy(os.path.join(native, f), tmp)
+            r = subprocess.run(["make", "-C", tmp], capture_output=True,
                                text=True)
             if r.returncode != 0:
-                raise RuntimeError(f"make -C native failed "
+                raise RuntimeError(f"make of {native}/frontend.cc failed "
                                    f"({r.returncode}):\n{r.stdout}\n"
                                    f"{r.stderr}")
+            # a copy beside the target, then one rename: atomic even
+            # where build/ and `native` lie on different file systems
+            part = f"{so}.{os.getpid()}.part"
+            shutil.copy(os.path.join(tmp, "libhevc_frontend.so"), part)
+            os.replace(part, so)
     return so

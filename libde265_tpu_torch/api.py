@@ -14,12 +14,12 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from . import _build
 from .bitstream.nal import split_annexb
 from .bitstream.paramsets import read_sps, read_pps
 from .device import resolve
 from .device_stream import DeviceStreamDecoder, ShardedStreamDecoder
 from .native_frontend import NativeFrontend
+from .parallel.gop_shard import decode_gops
 
 
 @dataclass
@@ -127,7 +127,7 @@ def _parse(data):
 
 
 def decode_stream_native(data: bytes, device="cuda", stats=None,
-                         tile_devices=None):
+                         tile_devices=None, gop_devices=None):
     """Decode `data` on `device` ("cuda", "cuda:N" or "cpu"); returns
     DecodedPicture objects in output order. Asking for CUDA where there
     is none raises.
@@ -142,13 +142,28 @@ def decode_stream_native(data: bytes, device="cuda", stats=None,
     download of the output pictures, synchronised; pack_s: the packing
     part of it) and the frame counts (n_frames; n_host_frames: frames
     the numpy reference reconstructed; n_strip_frames: frames decoded as
-    tile-column strips)."""
-    if tile_devices is None:
+    tile-column strips).
+
+    gop_devices: None, or a device list (e.g. ["cuda:0"] * 4): decode
+    each closed GOP on its own entry of the list, with a DPB of its own
+    (parallel/gop_shard.py); a GOP that does not start with a pure-intra
+    IRAP, or that holds a frame the frame program does not take, raises
+    ValueError. `device` is then not used; stats also get n_gops."""
+    if tile_devices is not None and gop_devices is not None:
+        raise ValueError("give tile_devices or gop_devices, not both")
+    if tile_devices is None and gop_devices is None:
         dev = resolve(device)
-    _build.ensure_frontend()
     t0 = time.perf_counter()
     plans = _parse(data)
     t1 = time.perf_counter()
+    if gop_devices is not None:
+        pics, st = decode_gops(plans, plans[0].sps if plans else None,
+                               gop_devices)
+        if stats is not None:
+            stats.update(st, parse_s=t1 - t0,
+                         decode_s=time.perf_counter() - t1,
+                         n_strip_frames=0)
+        return pics
     done = [p for p in plans if p.nal_type != -1 and p.output_flag]
     refs = _RefShim()
     dec = None

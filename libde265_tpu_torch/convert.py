@@ -31,7 +31,12 @@ def device_table(name, array, device):
     key = (name, torch.device(device))
     t = _TABLES.get(key)
     if t is None:
-        t = _TABLES[key] = to_tensor(array, device)
+        t = to_tensor(array, device)
+        if t.is_cuda:
+            # the table is read on every stream of the device (the GOP
+            # decoder runs one per lane): let the copy land first
+            torch.cuda.current_stream(t.device).synchronize()
+        _TABLES[key] = t
     return t
 
 

@@ -15,10 +15,13 @@
 // written as zeros, as the plain versions do; the MC window clamp never
 // reads them. (The TPU's K5 leaves roll residue there.)
 //
+// Tables are uint8 for 8-bit streams and int16 above 8 bits (the JAX
+// program's table_geom); both kernels take either (elem_bytes).
+//
 // Bound on the H100: pure data movement, dominated by the 16x expanding
 // write (about 153 MB per 4K 4:2:0 frame in uint8: a ~46 us floor at the
 // H100 SXM's 3.35 TB/s, 700 W limit; twice the write for int16 tables).
-// Design: both kernels run one block body. A block
+// Design: K1 is K5 with R = 1 on the slot's rows: one kernel. A block
 // owns a strip of TXB tile columns (TXB * row bytes = 8 KB of table a tile
 // row, two 16-byte stores a thread) and walks TYB tile rows down it. It
 // keeps the input rows of the current tile row in a ring of T + 4 rows in
@@ -200,22 +203,12 @@ __device__ __forceinline__ void tile_rows_block(
   }
 }
 
-template <int T, int P, bool VEC>
-__global__ void __launch_bounds__(THREADS)
-update_tile_table_kernel(uint8_t* __restrict__ table,
-                         const int16_t* __restrict__ padded, int Hp, int Wp,
-                         int nty, int nty_p, int ntx, int slot) {
-  using G = Tiles<T, P, uint8_t>;
-  tile_rows_block<T, P, uint8_t, VEC>(
-      table + (size_t)slot * nty_p * ntx * G::ROW, padded, Hp, Wp, nty,
-      nty_p, ntx, blockIdx.y * G::TYB, blockIdx.x * G::TXB);
-}
-
+// R table slots, one per grid z: K5's stack of R frames, or K1's one slot
+// (table already offset to it)
 template <int T, int P, typename OT, bool VEC>
 __global__ void __launch_bounds__(THREADS)
-build_tile_table_kernel(OT* __restrict__ table,
-                        const int16_t* __restrict__ padded, int Hp, int Wp,
-                        int nty, int nty_p, int ntx) {
+tile_table_kernel(OT* __restrict__ table, const int16_t* __restrict__ padded,
+                  int Hp, int Wp, int nty, int nty_p, int ntx) {
   using G = Tiles<T, P, OT>;
   const int r = blockIdx.z;
   tile_rows_block<T, P, OT, VEC>(
@@ -240,10 +233,10 @@ cudaError_t launch_build(void* table, const int16_t* padded, int Hp, int Wp,
                          int nty, int nty_p, int ntx, int R, cudaStream_t s) {
   const dim3 grid = tile_grid<T, P, OT>(ntx, nty_p, R);
   if (vec_ok(padded, Wp))
-    build_tile_table_kernel<T, P, OT, true><<<grid, THREADS, 0, s>>>(
+    tile_table_kernel<T, P, OT, true><<<grid, THREADS, 0, s>>>(
         (OT*)table, padded, Hp, Wp, nty, nty_p, ntx);
   else
-    build_tile_table_kernel<T, P, OT, false><<<grid, THREADS, 0, s>>>(
+    tile_table_kernel<T, P, OT, false><<<grid, THREADS, 0, s>>>(
         (OT*)table, padded, Hp, Wp, nty, nty_p, ntx);
   return cudaGetLastError();
 }
@@ -261,37 +254,7 @@ cudaError_t launch_build_t(void* table, const int16_t* padded, int P, int T,
   return cudaErrorInvalidValue;
 }
 
-template <int T, int P>
-cudaError_t launch_update(uint8_t* table, const int16_t* padded, int Hp,
-                          int Wp, int nty, int nty_p, int ntx, int slot,
-                          cudaStream_t s) {
-  const dim3 grid = tile_grid<T, P, uint8_t>(ntx, nty_p, 1);
-  if (vec_ok(padded, Wp))
-    update_tile_table_kernel<T, P, true><<<grid, THREADS, 0, s>>>(
-        table, padded, Hp, Wp, nty, nty_p, ntx, slot);
-  else
-    update_tile_table_kernel<T, P, false><<<grid, THREADS, 0, s>>>(
-        table, padded, Hp, Wp, nty, nty_p, ntx, slot);
-  return cudaGetLastError();
-}
-
 }  // namespace
-
-extern "C" int k1_update_tile_table(void* table, const void* padded,
-                                    int P, int T, int Hp, int Wp, int nty,
-                                    int nty_p, int ntx, int slot,
-                                    void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  uint8_t* tab = (uint8_t*)table;
-  const int16_t* pad = (const int16_t*)padded;
-  if (P == 1 && T == 16)
-    return (int)launch_update<16, 1>(tab, pad, Hp, Wp, nty, nty_p, ntx, slot,
-                                     s);
-  if (P == 2 && T == 8)
-    return (int)launch_update<8, 2>(tab, pad, Hp, Wp, nty, nty_p, ntx, slot,
-                                    s);
-  return (int)cudaErrorInvalidValue;
-}
 
 // padded: (R, P, Hp, Wp) int16; table: (R * nty_p * ntx, P*T*T) of
 // elem_bytes 1 (uint8) or 2 (int16).
@@ -310,4 +273,18 @@ extern "C" int k5_build_tile_table(void* table, const void* padded, int P,
     return (int)launch_build_t<int16_t>(table, pad, P, T, Hp, Wp, nty, nty_p,
                                         ntx, R, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// padded: (P, Hp, Wp) int16; table: (NSLOTS * nty_p * ntx, P*T*T) of
+// elem_bytes 1 (uint8, 8-bit streams) or 2 (int16, 9 to 12 bits); writes
+// slot `slot`, as K5 with R = 1 on that slot's rows.
+extern "C" int k1_update_tile_table(void* table, const void* padded, int P,
+                                    int T, int Hp, int Wp, int nty,
+                                    int nty_p, int ntx, int slot,
+                                    int elem_bytes, void* stream) {
+  if (slot < 0) return (int)cudaErrorInvalidValue;
+  char* rows = (char*)table
+               + (size_t)slot * nty_p * ntx * P * T * T * elem_bytes;
+  return k5_build_tile_table(rows, padded, P, T, Hp, Wp, nty, nty_p, ntx, 1,
+                             elem_bytes, stream);
 }

@@ -88,7 +88,7 @@ class DeviceStreamDecoder:
         if self.cfg.intra:
             self._cfgs[(True, True)] = self.cfg
             self._cfgs[(True, False)] = replace(self.cfg, skip_mc=True)
-        self.dtype = np.uint8
+        self.dtype = np.uint8 if self.cfg.bitdepth == 8 else np.uint16
         self.n_host_frames = 0         # frames reconstructed by numpy
         self.pack_seconds = 0.0        # host clock spent packing plans
         self.n_pipelined_frames = 0    # frames decode_all_pipelined ran

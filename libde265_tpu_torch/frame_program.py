@@ -13,8 +13,9 @@ under a torch.profiler.record_function range named after it (grids, mc,
 residual, pcm, intra, deblock, sao, insert), which profile_frames.py
 reads.
 
-The port runs the 4:2:0 8-bit main path with the kernels of the JAX
-use_pallas=True / pallas_taps=True branches: MC (K2, uni, bi and
+The port runs the 4:2:0 main path at 8 to 12 bits (uint8 tile tables at
+8 bits, int16 above, as the JAX program's table_geom) with the kernels
+of the JAX use_pallas=True / pallas_taps=True branches: MC (K2, uni, bi and
 explicit weighted prediction) on every frame with prediction units, the
 tile-table update (K1) and SAO (K3) on every frame, the intra scan (K4)
 on intra TUs. `check_slice` raises NotImplementedError for what the port
@@ -43,9 +44,8 @@ def check_slice(cfg: ProgramCfg):
     if cfg.chroma_fmt != 1:
         missing.append(f"chroma format {cfg.chroma_fmt} (only 4:2:0 is "
                        f"ported)")
-    if cfg.bitdepth != 8:
-        missing.append(f"bit depth {cfg.bitdepth} (int16 tile tables, "
-                       f"frame_program.py:487)")
+    if not 8 <= cfg.bitdepth <= 12:
+        missing.append(f"bit depth {cfg.bitdepth} (8 to 12 are ported)")
     if cfg.intra and not cfg.intra_scan:
         missing.append("intra outside the band-scan kernel")
     if missing:

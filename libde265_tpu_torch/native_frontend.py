@@ -1,8 +1,9 @@
 """Copy of libde265_tpu/native_frontend.py (the port keeps its own
-copies of the host modules and imports nothing of the JAX package). One
-change: slice pred-weight tables keep only the num_ref_idx_lX_active
+copies of the host modules and imports nothing of the JAX package). Two
+changes: slice pred-weight tables keep only the num_ref_idx_lX_active
 entries of each list, not 16 entries of which the rest are uninitialised
-memory from the C++ side.
+memory from the C++ side; and a checkout without the library builds it
+(_build.ensure_frontend) instead of refusing.
 
 ctypes binding for the C++ front-end (native/libhevc_frontend.so).
 
@@ -15,6 +16,7 @@ import os
 
 import numpy as np
 
+from . import _build
 from .plan import FramePlan, TURecord, PURecord, MODE_INTRA, MODE_INTER
 
 _LIB = None
@@ -23,12 +25,8 @@ _LIB = None
 def _lib():
     global _LIB
     if _LIB is None:
-        path = os.environ.get("HEVC_FRONTEND_SO") or os.path.join(
-            os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-            "native", "libhevc_frontend.so")
-        if not os.path.exists(path):
-            raise FileNotFoundError(
-                f"{path} not built — run `make -C native`")
+        path = os.environ.get("HEVC_FRONTEND_SO") \
+            or _build.ensure_frontend(_build.NATIVE)
         _LIB = C.CDLL(path)
         _LIB.fe_new.restype = C.c_void_p
         _LIB.fe_push_stream.argtypes = [C.c_void_p, C.c_char_p, C.c_int64]

@@ -17,9 +17,8 @@ import torch
 from ... import _build
 from ..mc_tile import build_tile_table_c, build_tile_table_y, tile_rows
 
-_ARGS = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 8 \
-    + [ctypes.c_void_p]
-_K5_ARGS = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 9 \
+# K1 and K5 take the same arguments: ..., slot (K1) or R (K5), elem_bytes
+_ARGS = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 9 \
     + [ctypes.c_void_p]
 
 
@@ -32,8 +31,9 @@ def _geometry(table, padded, T):
 
 
 def update_tile_table_plain(table, padded, slot, T):
-    """table: (NSLOTS*nty_p*ntx, P*T*T) uint8; padded: (P, Hp, Wp) int16
-    edge-padded planes; writes slot `slot` in place and returns table."""
+    """table: (NSLOTS*nty_p*ntx, P*T*T) uint8 (8-bit streams) or int16
+    (9 to 12 bits); padded: (P, Hp, Wp) int16 edge-padded planes; writes
+    slot `slot` in place and returns table."""
     P = padded.shape[0]
     tiles = tile_rows(padded, T, table.dtype)       # (P, nty_p, ntx, T*T)
     rows = tiles.permute(1, 2, 0, 3).reshape(-1, P * T * T)
@@ -50,14 +50,16 @@ def update_tile_table(table, padded, slot, T):
     if table.device.type != "cuda" or padded.device != table.device:
         raise ValueError("update_tile_table: table and padded must be on "
                          "the same CUDA device")
-    if table.dtype != torch.uint8 or padded.dtype != torch.int16:
-        raise TypeError(f"update_tile_table: want uint8 table / int16 "
-                        f"planes, got {table.dtype} / {padded.dtype}")
+    if table.dtype not in (torch.uint8, torch.int16) \
+            or padded.dtype != torch.int16:
+        raise TypeError(f"update_tile_table: want a uint8 or int16 table "
+                        f"and int16 planes, got {table.dtype} / "
+                        f"{padded.dtype}")
     if (P, T) not in ((1, 16), (2, 8)):
         raise ValueError(f"update_tile_table: unsupported P={P}, T={T}")
     if table.dim() != 2 or table.shape[1] != P * T * T:
         raise ValueError(f"update_tile_table: table {tuple(table.shape)} "
-                         f"rows must be {P * T * T} bytes")
+                         f"rows must be {P * T * T} elements")
     slot = int(slot)
     if slot < 0 or (slot + 1) * nty_p * ntx > table.shape[0]:
         raise ValueError(f"update_tile_table: slot {slot} outside a table "
@@ -74,7 +76,7 @@ def _launch(table, padded, slot, T):
     fn = _build.kernel_fn("k1_update_tile_table", _ARGS)
     stream = torch.cuda.current_stream(table.device).cuda_stream
     err = fn(table.data_ptr(), padded.data_ptr(), P, T, Hp, Wp, nty, nty_p,
-             ntx, slot, stream)
+             ntx, slot, table.element_size(), stream)
     _build.check_launch("k1_update_tile_table", err)
 
 
@@ -136,7 +138,7 @@ def _launch_build(padded, T, out_dtype):
     nty_p = -(-nty // 8) * 8
     table = torch.empty((R * nty_p * ntx, P * T * T), dtype=out_dtype,
                         device=padded.device)
-    fn = _build.kernel_fn("k5_build_tile_table", _K5_ARGS)
+    fn = _build.kernel_fn("k5_build_tile_table", _ARGS)
     stream = torch.cuda.current_stream(padded.device).cuda_stream
     err = fn(table.data_ptr(), padded.data_ptr(), P, T, Hp, Wp, nty, nty_p,
              ntx, R, table.element_size(), stream)

@@ -34,7 +34,6 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from . import _build
 from .api import _parse
 from .convert import plan_from_numpy
 from .device_stream import DeviceStreamDecoder, ShardedStreamDecoder
@@ -187,7 +186,6 @@ def main(argv):
     out = argv[1] if len(argv) > 1 else os.path.join(REPO, "profile_out")
     os.makedirs(out, exist_ok=True)
     dev = torch.device("cuda")
-    _build.ensure_frontend()
     with open(os.path.join(REPO, "tests", "data", stream + ".bin"),
               "rb") as f:
         plans = _parse(f.read())

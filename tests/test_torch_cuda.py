@@ -24,9 +24,7 @@ def cuda():
 
 
 def _plans(name):
-    from libde265_tpu_torch import _build
     from libde265_tpu_torch.api import _parse
-    _build.ensure_frontend()        # a fresh checkout has no front end yet
     with open(os.path.join(DATA, name + ".bin"), "rb") as f:
         return _parse(f.read())
 
@@ -40,21 +38,23 @@ def _idr(name, dev):
     return cfg, plan_from_numpy(pack_frame(plans[0], cfg, {}), dev)
 
 
-def _k1_case(dev, H, W, nslots, slot):
+def _k1_case(dev, H, W, nslots, slot, bitdepth=8):
     """K1 into `slot` of an nslots table of random rows against the plain
-    version, luma (T = 16) and the [Cb|Cr] pair (T = 8)."""
+    version, luma (T = 16) and the [Cb|Cr] pair (T = 8); uint8 tables at
+    8 bits, int16 above."""
     from libde265_tpu_torch.ops.kernels import mc_tables as k
     from libde265_tpu_torch.ops.mc_tile import pad_plane
     rng = np.random.RandomState(H + W)
+    dt = torch.uint8 if bitdepth == 8 else torch.int16
     for T, P, pad, (h, w) in ((16, 1, 16, (H, W)),
                               (8, 2, 8, (H // 2, W // 2))):
         padded = pad_plane(torch.as_tensor(
-            rng.randint(0, 256, (P, h, w)), dtype=torch.int16,
+            rng.randint(0, 1 << bitdepth, (P, h, w)), dtype=torch.int16,
             device=dev), pad).contiguous()
         nty = (h + 2 * pad - T + 4) // 4
         ntx = (w + 2 * pad - T + 4) // 4
         rows = nslots * (-(-nty // 8) * 8) * ntx
-        init = torch.randint(0, 256, (rows, P * T * T), dtype=torch.uint8,
+        init = torch.randint(0, 1 << bitdepth, (rows, P * T * T), dtype=dt,
                              device=dev)
         got, want = init.clone(), init.clone()
         k.update_tile_table(got, padded, slot, T)
@@ -74,6 +74,15 @@ def test_k1_last_slot_matches_plain(cuda, H, W):
     block; 16x16 has 8x8 chroma planes; at 72x136 the chroma pitch (84)
     is not a multiple of 8 samples, so it stages with 2-byte loads."""
     _k1_case(cuda, H, W, 4, 3)
+
+
+@pytest.mark.parametrize("H,W,nslots,slot", [
+    (64, 304, 4, 3), (16, 16, 4, 3), (72, 136, 4, 3), (2160, 3840, 8, 5)])
+def test_k1_int16_matches_plain(cuda, H, W, nslots, slot):
+    """K1 writing int16 tables (10-bit samples): the last slot at 64x304,
+    16x16 and 72x136 (2-byte staging), and one slot of an 8-slot 4K
+    table."""
+    _k1_case(cuda, H, W, nslots, slot, bitdepth=10)
 
 
 def _k3_check(x, g, scfg, xoff, bitdepth, what):
@@ -154,12 +163,15 @@ def test_k3_random_matches_plain(cuda, xoff):
                                         ("intra_104x72_q26", True),
                                         ("p_cif_mixed", False),
                                         ("ld1080p_light", False),
-                                        ("p_tiles4_1080p_mv", False)])
+                                        ("p_tiles4_1080p_mv", False),
+                                        ("adv_cra_scaling_10b_amp", False),
+                                        ("rext_420_inter_12b", False)])
 def test_k4_matches_plain(cuda, name, holes):
     """K4 (the band wavefront) against its plain serial version, 10
     launches per plane group, every output equal: small IDRs (with and
-    without availability holes), a 17-band 1080p IDR and the IDR of the
-    4-column tile stream, whose slots are in tile-scan order."""
+    without availability holes), a 17-band 1080p IDR, the IDR of the
+    4-column tile stream, whose slots are in tile-scan order, and a
+    10-bit and a 12-bit IDR (planes of that many bits)."""
     from libde265_tpu_torch.intra_fused import avail_spans, scan_groups
     from libde265_tpu_torch.ops.kernels import intra_scan as k
     cfg, t = _idr(name, cuda)
@@ -173,7 +185,8 @@ def test_k4_matches_plain(cuda, name, holes):
                     av[r, ones[rng.randint(1, len(ones) - 1)]] = 0
             kw = dict(kw, avail=av.contiguous(), spans=avail_spans(av))
         dims = [(cfg.H, cfg.W)] + [(cfg.H // 2, cfg.W // 2)] * 2
-        planes = [torch.as_tensor(rng.randint(0, 256, dims[i]),
+        planes = [torch.as_tensor(rng.randint(0, 1 << cfg.bitdepth,
+                                              dims[i]),
                                   dtype=torch.int32, device=cuda)
                   for i in idx]
         want = [p.clone() for p in planes]
@@ -433,9 +446,7 @@ def test_pipelined_on_card(cuda, name, copies):
     with open(os.path.join(DATA, "manifest_inter.json")) as f:
         m = json.load(f)[name]
     with open(os.path.join(DATA, name + ".bin"), "rb") as f:
-        from libde265_tpu_torch import _build
         from libde265_tpu_torch.api import _parse
-        _build.ensure_frontend()
         plans = _parse(f.read() * copies)
     keep = copies == 1
     dec = DeviceStreamDecoder(plans, plans[0].sps, "cuda")
@@ -457,3 +468,64 @@ def test_pipelined_on_card(cuda, name, copies):
             assert got == want, i
             n += 1
     assert n == min(len(plans), 8)
+
+
+# the 4:2:0 vectors above 8 bits -> frames frame_compatible rejects
+HBD = {"p_10bit": 0, "rext_420_inter_12b": 0, "rxt_cqo_10b": 3,
+       "rxt_rice_scaling_10b": 0, "adv_cra_scaling_10b_amp": 0,
+       "adv_wpp_dep10_scaling": 0}
+
+
+@pytest.mark.parametrize("name,host_frames", sorted(HBD.items()))
+def test_high_bit_depth_on_card(cuda, name, host_frames):
+    """10- and 12-bit 4:2:0 decoded on the card (int16 tile tables,
+    uint16 pictures): every frame MD5-equal (of 16-bit little-endian
+    samples), the host path only for the frames frame_compatible rejects
+    (TU-level chroma QP offsets), K1 two launches a device frame."""
+    from libde265_tpu_torch.api import decode_stream_native
+    from libde265_tpu_torch.ops.kernels.mc_tables import update_tile_table
+    mf = {"adv_": "manifest_adv.json", "rxt_": "manifest_rext_tools.json",
+          "rext_": "manifest_rext.json"}.get(name[:name.index("_") + 1],
+                                             "manifest_inter.json")
+    with open(os.path.join(DATA, mf)) as f:
+        m = json.load(f)[name]
+    with open(os.path.join(DATA, name + ".bin"), "rb") as f:
+        data = f.read()
+    n1 = update_tile_table.launches
+    st = {}
+    pics = decode_stream_native(data, device="cuda", stats=st)
+    assert len(pics) == m["frames"] and st["n_host_frames"] == host_frames
+    assert pics[0].planes[0].dtype == np.uint16
+    for i, pic in enumerate(pics):
+        got = [pic.plane_md5(c) for c in range(3)]
+        assert got == [m["md5"][i][k] for k in ("y", "u", "v")], i
+    # host frames are inserted with K1 as well
+    assert update_tile_table.launches - n1 == 2 * len(pics)
+
+
+def test_gop_decode_on_card(cuda):
+    """The GOP decoder on two GOPs (p_mv twice over) on ["cuda:0"] * 2,
+    one CUDA stream per entry: every frame MD5-equal, and the launches
+    of the single-decoder decode of the same stream."""
+    from libde265_tpu_torch.api import decode_stream_native
+    from libde265_tpu_torch.ops.kernels.intra_scan import intra_scan
+    from libde265_tpu_torch.ops.kernels.mc_filter import mc_predict
+    from libde265_tpu_torch.ops.kernels.mc_tables import update_tile_table
+    from libde265_tpu_torch.ops.kernels.sao_filter import sao_ctb
+    with open(os.path.join(DATA, "manifest_inter.json")) as f:
+        m = json.load(f)["p_mv"]
+    with open(os.path.join(DATA, "p_mv.bin"), "rb") as f:
+        data = f.read() * 2
+    counters = (update_tile_table, mc_predict, sao_ctb, intra_scan)
+    launches = []
+    for kw in (dict(gop_devices=["cuda:0"] * 2), dict(device="cuda")):
+        n = [c.launches for c in counters]
+        st = {}
+        pics = decode_stream_native(data, stats=st, **kw)
+        launches.append([c.launches - a for c, a in zip(counters, n)])
+        assert len(pics) == 2 * m["frames"] and st["n_host_frames"] == 0
+        for i, pic in enumerate(pics):
+            got = [pic.plane_md5(c) for c in range(3)]
+            assert got == [m["md5"][i % m["frames"]][k]
+                           for k in ("y", "u", "v")], (kw, i)
+    assert launches[0] == launches[1] and launches[0][3] >= 2

@@ -34,7 +34,10 @@ STREAMS = ["p_mv", "b_mv", "p_sao", "p_deblk", "intra_64x64_q27",
            "p_tskip", "p_tqbypass", "i_tskip_nxn", "p_pcm", "p_pcm_nolf",
            "p_scaling", "adv_lossless_tskip_partial", "adv_rice_tiles",
            "adv_tiles_lossless", "adv_dep_pcm_strong",
-           "adv_ltr_tsa_scaling"]
+           "adv_ltr_tsa_scaling",
+           # 4:2:0 above 8 bits (uint16 pictures, int16 tile tables)
+           "p_10bit", "rext_420_inter_12b", "rxt_rice_scaling_10b",
+           "adv_cra_scaling_10b_amp", "adv_wpp_dep10_scaling"]
 # accepted vectors with frames that frame_compatible rejects (range-
 # extension residual tools, TU-level chroma QP offsets): the numpy
 # reference reconstructs those into the device DPB
@@ -42,7 +45,9 @@ HOST_FRAMES = {"adv_rot_tsctx_wpp": 1, "adv_cqo_tiles": 4, "rxt_cqo": 4,
                "rxt_kitchen": 4, "rxt_smooth_off": 3,
                # explicit RDPCM in every P frame
                "adv_erdpcm_dep": 3, "rxt_erdpcm": 3,
-               "rxt_erdpcm_rot_tsctx": 3}
+               "rxt_erdpcm_rot_tsctx": 3,
+               # 10-bit, TU-level chroma QP offsets in every frame
+               "rxt_cqo_10b": 3}
 
 
 def _manifest(name):
@@ -143,10 +148,11 @@ def test_frame_program_matches_jax():
 
 
 def test_port_runs_without_jax():
-    """Importing every module of the port (parallel.tile_shard among
-    them) and decoding small streams on the CPU, one of them through the
-    numpy host path, one through the pipelined decoder and one through
-    the tile-column decoder, leaves jax and the JAX package
+    """Importing every module of the port (parallel.tile_shard and
+    parallel.gop_shard among them) and decoding small streams on the CPU,
+    one of them through the numpy host path, one at 10 bits, one through
+    the pipelined decoder, one through the tile-column decoder and one
+    through the GOP decoder, leaves jax and the JAX package
     (libde265_tpu) out of sys.modules."""
     code = (
         "import sys, pkgutil, importlib\n"
@@ -155,7 +161,8 @@ def test_port_runs_without_jax():
         "    importlib.import_module(m.name)\n"
         "from libde265_tpu_torch.api import decode_stream_native\n"
         "for name, n, nh in (('i_deblk_sao', 2, 0),\n"
-        "                    ('adv_rot_tsctx_wpp', 4, 1)):\n"
+        "                    ('adv_rot_tsctx_wpp', 4, 1),\n"
+        "                    ('p_10bit', 3, 0)):\n"
         "    st = {}\n"
         "    data = open(f'tests/data/{name}.bin', 'rb').read()\n"
         "    pics = decode_stream_native(data, device='cpu', stats=st)\n"
@@ -172,6 +179,10 @@ def test_port_runs_without_jax():
         "pics = decode_stream_native(data, stats=st,\n"
         "                            tile_devices=['cpu', 'cpu'])\n"
         "assert (len(pics), st['n_strip_frames']) == (4, 3)\n"
+        "data = open('tests/data/p_mv.bin', 'rb').read() * 2\n"
+        "pics = decode_stream_native(data, stats=st,\n"
+        "                            gop_devices=['cpu', 'cpu'])\n"
+        "assert (len(pics), st['n_gops']) == (8, 2)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'libde265_tpu')]\n"
         "assert not bad, bad\n"

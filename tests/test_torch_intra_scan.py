@@ -13,7 +13,9 @@ import torch
 DATA = os.path.join(os.path.dirname(__file__), "data")
 CASES = [("intra_64x64_q27", False), ("intra_104x72_q26", False),
          ("i_deblk_sao", False), ("p_cip", False), ("p_cif_mixed", False),
-         ("i_deblk_sao", True)]
+         ("i_deblk_sao", True),
+         # 10 bits: the mid grey and strong-smoothing threshold follow it
+         ("adv_cra_scaling_10b_amp", False), ("p_10bit", False)]
 
 
 @pytest.fixture
@@ -77,7 +79,7 @@ def test_intra_stage_scan_matches_jax(name, holes, force_scan):
             assert _punch_holes(tj, rng) > 0
         tp = plan_from_numpy(tj, "cpu")
         H, W = cp.H, cp.W
-        planes = [rng.randint(0, 256, s).astype(np.int32)
+        planes = [rng.randint(0, 1 << cp.bitdepth, s).astype(np.int32)
                   for s in ((H, W), (H // 2, W // 2), (H // 2, W // 2))]
         want = scan(*(jnp.asarray(p) for p in planes),
                     {k: jnp.asarray(v) for k, v in tj.items()}, vj)
@@ -287,7 +289,7 @@ def test_eager_wavefront_matches_serial_and_jax(name, holes, force_scan):
         if holes:
             assert _punch_holes(tj, rng) > 0
         H, W = cp.H, cp.W
-        planes = [rng.randint(0, 256, s).astype(np.int32)
+        planes = [rng.randint(0, 1 << cp.bitdepth, s).astype(np.int32)
                   for s in ((H, W), (H // 2, W // 2), (H // 2, W // 2))]
         want = scan(*(jnp.asarray(p) for p in planes),
                     {k: jnp.asarray(v) for k, v in tj.items()}, vj)

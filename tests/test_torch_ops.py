@@ -265,7 +265,7 @@ def _sao_case(seed, ci, xoff, bitdepth, W=None):
     return x, g, (6, 1, H, W, 2, 2)
 
 
-@pytest.mark.parametrize("bitdepth", [8, 10])
+@pytest.mark.parametrize("bitdepth", [8, 10, 12])
 @pytest.mark.parametrize("xoff", [0, -16, 112])
 @pytest.mark.parametrize("ci", [0, 1, 2])
 def test_sao_ctb_plain_matches_jax(ci, xoff, bitdepth):
