@@ -133,7 +133,27 @@ card.
    feeds it, exact against sao_ctb_plain and timed as in step 3; the
    numpy reference (the host path) on the first two frames, timed and
    MD5-checked; then the 13 small vectors with refused frames (REFUSED),
-   MD5-equal, with their hybrid and host frame counts: 20 and 21.
+   MD5-equal, with their hybrid and host frame counts: 20 and 21;
+14. the push API (api.new_decoder(device="cuda"), push_data, decode,
+   get_next_picture): ld4k_light pushed in 64 KiB pieces, pts = piece
+   index, counters zeroed just before: every frame MD5-equal to
+   manifest_big.json, each with the pts of the push that completed its
+   first slice (worked out from the bytes), no host frame, K1 = 66, K2 =
+   64, K3 = 99, K4 = 2, its wall beside phase 4's; then p_hash_sei and
+   rxt_cqo (hybrid frames) pushed in 997-byte pieces: MD5-equal, every
+   SEI picture hash checked and passed, no warning;
+15. parallel.gop_parallel.decode_gop_parallel on gop1080p with
+   backend="workers", workers=4, devices=["cuda:0"] (four spawned
+   processes on this card, one segment a task): all 96 frames MD5-equal,
+   16 segments, K4 = 32 and K1-K3 equal to phase 11's, summed over the
+   workers' stats; its wall beside phase 11's GOP decoder and one
+   decoder; then backend=None on rxt_cqo twice over, which the GOP
+   decoder refuses: route "workers", every frame MD5-equal, its 8 hybrid
+   frames counted;
+16. backend.reconstruct_frame_device on the card, from the pre-filter
+   planes (numpy reference, loop filters off) of the IDRs of i_deblk_sao
+   (deblocking and SAO) and p_deblk (deblocking only): equal to the
+   numpy reference's filtered frame, K3 launched 3 times and 0 times.
 
 Any failure exits non-zero. The last stdout line is the JSON
 {"ok": true, "device": {...}}; the line before it is the card's name and
@@ -1268,6 +1288,127 @@ def numpy_frames(dec, plans, name, manifest, n=2):
     return secs
 
 
+def expected_pts(data, chunk):
+    """The pts each picture of `data` should carry when the stream is
+    pushed in `chunk`-byte pieces with pts = piece index: that of the push
+    that completes the NAL of its first slice (the NAL parser emits a NAL
+    once the next start code has arrived; the last one at flush, with
+    the last push's pts), in decode order. Worked out from the bytes,
+    independently of the decoder."""
+    starts = []
+    i = data.find(b"\x00\x00\x01")
+    while i >= 0:
+        starts.append(i)
+        i = data.find(b"\x00\x00\x01", i + 3)
+    last = (len(data) - 1) // chunk
+    out = []
+    for k, j in enumerate(starts):
+        t = (data[j + 3] >> 1) & 0x3F
+        if t < 32 and data[j + 5] & 0x80:      # first_slice_segment_in_pic
+            out.append((starts[k + 1] + 2) // chunk
+                       if k + 1 < len(starts) else last)
+    return out
+
+
+def sei_hash_count(data):
+    """Decoded-picture-hash SEI messages in `data`."""
+    from libde265_tpu_torch.bitstream.nal import split_annexb
+    from libde265_tpu_torch.bitstream.sei import parse_sei
+    return sum(m.picture_hash is not None
+               for u in split_annexb(data)
+               if u.header.nal_unit_type in (39, 40)
+               for m in parse_sei(u.data))
+
+
+def push_decode(data, chunk, device):
+    """Push `data` into new_decoder(device) in `chunk`-byte pieces, pts =
+    piece index; decode until decode() returns False, then drain the
+    pictures. Returns (pictures, decoder, host wall s)."""
+    from libde265_tpu_torch import api
+    t0 = time.perf_counter()
+    dec = api.new_decoder(device=device)
+    for i in range(0, len(data), chunk):
+        api.push_data(dec, data[i:i + chunk], pts=i // chunk)
+    api.flush_data(dec)
+    pics = []
+    while True:
+        more = api.decode(dec)
+        while True:
+            p = api.get_next_picture(dec)
+            if p is None:
+                break
+            pics.append(p)
+        if not more:
+            break
+    return pics, dec, time.perf_counter() - t0
+
+
+def warnings_of(dec):
+    out = []
+    while True:
+        w = dec.get_warning()
+        if w is None:
+            return out
+        out.append(w.name)
+
+
+def md5_check(name, frames, manifest, repeat=1):
+    """frames: the (poc, yuv bytes) of an 8-bit 4:2:0 stream that is the
+    manifest's `repeat` times over; every frame's per-plane MD5 equal to
+    the manifest's, in its order."""
+    with open(os.path.join(DATA, manifest)) as f:
+        man = json.load(f)[name]
+    want = man["md5"] * repeat
+    if len(frames) != len(want):
+        fail(f"{name} x{repeat}: {len(frames)} frames, want {len(want)}")
+    ny = man["w"] * man["h"]
+    nc = ny // 4
+    for i, (poc, buf) in enumerate(frames):
+        got = [hashlib.md5(b).hexdigest() for b in
+               (buf[:ny], buf[ny:ny + nc], buf[ny + nc:])]
+        if len(buf) != ny + 2 * nc or got != [want[i][c] for c in "yuv"]:
+            fail(f"{name} x{repeat} frame {i} (poc {poc}): MD5 differs")
+
+
+def check_backend_filters(dev, counters):
+    """backend.reconstruct_frame_device on the card: the pre-filter
+    planes (the numpy reference with its loop filters switched off) of
+    the IDRs of i_deblk_sao (deblocking and SAO) and p_deblk (deblocking
+    only), counters zeroed before each; the result must equal the numpy
+    reference's filtered frame, with K3 launched once a plane where SAO
+    is on and never where it is off. Returns [(name, K3 launches)]."""
+    import torch
+    from libde265_tpu_torch.backend import reconstruct_frame_device
+    from libde265_tpu_torch.reconstruct import reconstruct_frame
+    out = []
+    for name, sao in (("i_deblk_sao", True), ("p_deblk", False)):
+        plan = parse(name)[1][0]
+        full = reconstruct_frame(plan)
+        os.environ["DE265_DISABLE_DEBLOCK"] = "1"
+        os.environ["DE265_DISABLE_SAO"] = "1"
+        try:
+            pre = reconstruct_frame(plan)
+        finally:
+            del os.environ["DE265_DISABLE_DEBLOCK"]
+            del os.environ["DE265_DISABLE_SAO"]
+        plan.planes = [torch.as_tensor(p.astype("int32")).to(dev)
+                       for p in pre]
+        torch.cuda.synchronize()
+        for f in counters:
+            f.launches = 0
+        got = reconstruct_frame_device(plan)
+        torch.cuda.synchronize()
+        k3 = counters[2].launches
+        require_equal(f"reconstruct_frame_device {name}",
+                      [g.cpu() for g in got],
+                      [torch.as_tensor(p.astype("int32")) for p in full])
+        if got[0].device.type != "cuda" or k3 != (3 if sao else 0):
+            fail(f"reconstruct_frame_device {name}: on {got[0].device}, "
+                 f"K3 launched {k3} times, want {3 if sao else 0}")
+        out.append((name, k3))
+    return out
+
+
 def main():
     try:
         import torch
@@ -1633,6 +1774,117 @@ def main():
         f"{tot[1]} numpy host frames, every frame MD5-equal")
     if tot != [20, 21]:
         fail(f"refused frames routed {tot}, want 20 hybrid and 21 host")
+
+    # ---- 14: the push API at full width. ld4k_light pushed in 64 KiB
+    # pieces, each with its own pts, counters zeroed just before; then
+    # p_hash_sei and rxt_cqo (hybrid frames) with their SEI hash checks
+    chunk = 64 * 1024
+    torch.cuda.synchronize()
+    for f in counters:
+        f.launches = 0
+    ppics, pdec, pwall = push_decode(data, chunk, "cuda")
+    pln = [f.launches for f in counters]
+    with open(os.path.join(DATA, "manifest_big.json")) as f:
+        man = json.load(f)[STREAM]
+    if len(ppics) != man["frames"]:
+        fail(f"push API {STREAM}: {len(ppics)} pictures, want "
+             f"{man['frames']}")
+    want_pts = expected_pts(data, chunk)
+    for i, pic in enumerate(ppics):
+        got = [hashlib.md5(np.ascontiguousarray(q).tobytes()).hexdigest()
+               for q in pic.planes]
+        if got != [man["md5"][i][c] for c in ("y", "u", "v")]:
+            fail(f"push API {STREAM} frame {i} (poc {pic.poc}): MD5 differs")
+        if pic.pts != want_pts[pic.plan.frame_id]:
+            fail(f"push API {STREAM} frame {i}: pts {pic.pts}, want "
+                 f"{want_pts[pic.plan.frame_id]}")
+    pst = pdec.stats
+    log(f"push API {STREAM}: {len(ppics)} frames MD5-equal to "
+        f"manifest_big.json, each with the pts of the push that completed "
+        f"its first slice ({len(data)} bytes in {-(-len(data) // chunk)} "
+        f"pushes of {chunk}); {pst['n_segments']} segment(s), "
+        f"n_host_frames {pst['n_host_frames']}, n_hybrid_frames "
+        f"{pst['n_hybrid_frames']}; launches K1 {pln[0]}, K2 {pln[1]}, K3 "
+        f"{pln[2]}, K4 {pln[3]}; wall {pwall:.3f} s = "
+        f"{len(ppics) / pwall:.2f} fps (phase 4, decode_stream_native: "
+        f"{wall:.3f} s = {nfr / wall:.2f} fps)")
+    if pst["n_host_frames"] or pln[:4] != [66, 64, 99, 2]:
+        fail(f"push API {STREAM}: {pst['n_host_frames']} host frames, "
+             f"launches {pln[:4]}; want 0 and K1 66, K2 64, K3 99, K4 2")
+    for name, manifest in (("p_hash_sei", "manifest_inter.json"),
+                           ("rxt_cqo", "manifest_rext_tools.json")):
+        with open(os.path.join(DATA, name + ".bin"), "rb") as f:
+            sdata = f.read()
+        spics, sdec, _ = push_decode(sdata, 997, "cuda")
+        nh = sei_hash_count(sdata)
+        ws = warnings_of(sdec)
+        with open(os.path.join(DATA, manifest)) as f:
+            sman = json.load(f)[name]
+        for i, pic in enumerate(spics):
+            if [pic.plane_md5(c) for c in range(3)] != \
+                    [sman["md5"][i][c] for c in ("y", "u", "v")]:
+                fail(f"push API {name} frame {i}: MD5 differs")
+        log(f"push API {name}: {len(spics)} frames MD5-equal to {manifest}; "
+            f"SEI hash checks passed {sdec.hash_checks_passed} of {nh}; "
+            f"warnings {ws}; n_hybrid_frames {sdec.stats['n_hybrid_frames']}")
+        if len(spics) != sman["frames"] or not nh \
+                or sdec.hash_checks_passed != nh or ws:
+            fail(f"push API {name}: {len(spics)} frames, hash checks "
+                 f"{sdec.hash_checks_passed} of {nh}, warnings {ws}")
+    if sdec.stats["n_hybrid_frames"] != 4:
+        fail(f"push API rxt_cqo: {sdec.stats['n_hybrid_frames']} hybrid "
+             f"frames, want 4")
+
+    # ---- 15: decode_gop_parallel on gop1080p, four spawned workers on
+    # this card; then a stream the GOP decoder refuses (rxt_cqo twice
+    # over: hybrid frames), which the workers take
+    from libde265_tpu_torch.parallel.gop_parallel import decode_gop_parallel
+    torch.cuda.synchronize()
+    for f in counters:
+        f.launches = 0
+    wst = {}
+    t0, e0 = time.perf_counter(), time.time()
+    wframes = decode_gop_parallel(gdata, workers=4, backend="workers",
+                                  devices=["cuda:0"], stats=wst)
+    wwall, e1 = time.perf_counter() - t0, time.time()
+    md5_check(GOP_STREAM, wframes, "manifest_big.json")
+    wln = wst["launches"]
+    per = wst["per_gop"]
+    log(f"decode_gop_parallel {GOP_STREAM}: {len(wframes)} frames in "
+        f"{wst['n_gops']} segments, 4 spawned workers on cuda:0, MD5-equal "
+        f"to manifest_big.json; route {wst['route']}; n_host_frames "
+        f"{wst['n_host_frames']}, n_hybrid_frames {wst['n_hybrid_frames']}"
+        f"; launches summed over the workers K1 {wln[0]}, K2 {wln[1]}, K3 "
+        f"{wln[2]}, K4 {wln[3]}; wall {wwall:.3f} s = "
+        f"{len(wframes) / wwall:.2f} fps (a segment's worker wall "
+        f"{min(x['wall_s'] for x in per):.3f}-"
+        f"{max(x['wall_s'] for x in per):.3f} s, the first starting "
+        f"{min(x['start'] for x in per) - e0:.3f} s into the call, the "
+        f"last ending {e1 - max(x['end'] for x in per):.3f} s before its "
+        f"end); phase 11: GOP decoder "
+        f"{gwall:.3f} s, one decoder {swall:.3f} s; parent launches "
+        f"{[f.launches for f in counters]}")
+    if wst["route"] != "workers" or wst["n_gops"] != 16 or wln[3] != 32 \
+            or wst["n_host_frames"] or wln[:3] != gln[:3]:
+        fail(f"decode_gop_parallel {GOP_STREAM}: route {wst['route']}, "
+             f"{wst['n_gops']} segments, launches {wln}; want workers, 16, "
+             f"K4 32 and K1-K3 {gln[:3]}")
+    with open(os.path.join(DATA, "rxt_cqo.bin"), "rb") as f:
+        cq2 = f.read() * 2
+    cst = {}
+    cframes = decode_gop_parallel(cq2, devices=["cuda:0"], stats=cst)
+    md5_check("rxt_cqo", cframes, "manifest_rext_tools.json", repeat=2)
+    log(f"decode_gop_parallel rxt_cqo x2: route {cst['route']}, "
+        f"{len(cframes)} frames MD5-equal, n_hybrid_frames "
+        f"{cst['n_hybrid_frames']}, n_host_frames {cst['n_host_frames']}")
+    if cst["route"] != "workers" or cst["n_hybrid_frames"] != 8:
+        fail(f"decode_gop_parallel rxt_cqo x2: route {cst['route']}, "
+             f"{cst['n_hybrid_frames']} hybrid frames; want workers and 8")
+
+    # ---- 16: backend.reconstruct_frame_device on the card
+    for name, k3n in check_backend_filters(dev, counters):
+        log(f"backend.reconstruct_frame_device {name} IDR: equal to the "
+            f"numpy reference's filtered frame; K3 launched {k3n} times")
 
     ms_i, ms_p = frame_times(dev, plans)
     log(f"frame program (CUDA events): 4K IDR {ms_i:.3f} ms, 4K P frame "

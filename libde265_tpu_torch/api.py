@@ -1,9 +1,21 @@
-"""Public entry point of the port: decode a whole Annex-B stream.
+"""Public entry points of the port.
 
-Counterpart of libde265_tpu.api.decode_stream_native(backend="device"):
-the C++ front end (native/libhevc_frontend.so) parses the stream, the
-device-resident decoder reconstructs it on `device`, and the pictures
-come back in output order with the conformance window applied.
+decode_stream_native: counterpart of libde265_tpu.api.decode_stream_native
+(backend="device"): the C++ front end (native/libhevc_frontend.so) parses
+the whole stream, the device-resident decoder reconstructs it on
+`device`, and the pictures come back in output order with the
+conformance window applied.
+
+The push API, the de265_* C surface (libde265/de265.h:190-430) in
+pythonic form, as libde265_tpu/api.py:56-124 has it, over the port's
+decoder.Decoder (on "cuda" unless the caller asks for "cpu"):
+
+    dec = new_decoder()
+    push_data(dec, chunk, pts)
+    flush_data(dec)
+    while decode(dec): ...
+    pic = get_next_picture(dec)   # -> DecodedPicture or None
+
 `DecodedPicture`, `_RefShim` and `_order_and_crop` are copies of
 libde265_tpu/api.py:18-53,127-143,203-229.
 """
@@ -16,6 +28,7 @@ import torch
 
 from .bitstream.nal import split_annexb
 from .bitstream.paramsets import read_sps, read_pps
+from .decoder import Decoder
 from .device import resolve
 from .device_stream import DeviceStreamDecoder, ShardedStreamDecoder
 from .native_frontend import NativeFrontend
@@ -108,7 +121,9 @@ def _order_and_crop(done, refs):
     return pics
 
 
-def _parse(data):
+def _param_sets(data):
+    """The Python-parsed SPS and PPS maps of an Annex-B stream (the plans'
+    derived values come from these)."""
     spss, ppss = {}, {}
     for u in split_annexb(data):
         t = u.header.nal_unit_type
@@ -123,7 +138,51 @@ def _parse(data):
             # corrupted/truncated parameter set: skip the unit and decode
             # what remains (decctx.cc:1593-1595)
             continue
-    return NativeFrontend().parse(data, spss, ppss)
+    return spss, ppss
+
+
+def _parse(data):
+    return NativeFrontend().parse(data, *_param_sets(data))
+
+
+def _conceal_first(plans):
+    """The plan list with each concealment frame (nal_type -1: a grey
+    stand-in for a missing reference) moved before the frame whose
+    reference set asked for it. The front end appends it after that
+    frame, which then references a frame not yet decoded."""
+    out, at = [], 0
+    for p in plans:
+        if p.nal_type == -1:
+            out.insert(at, p)
+            at += 1
+        else:
+            at = len(out)
+            out.append(p)
+    return out
+
+
+def _decode_plans(plans, dev, keep=(), tile_devices=None):
+    """Decode a parsed plan list on `dev` (or on tile_devices through
+    ShardedStreamDecoder), synchronised, concealment frames first
+    (_conceal_first). Frames in `keep` stay readable through
+    dec.planes_of after it, as the output frames do. Returns
+    (DecodedPictures in output order, decoder)."""
+    plans = _conceal_first(plans)
+    if tile_devices is None:
+        dec = DeviceStreamDecoder(plans, plans[0].sps, dev)
+    else:
+        dec = ShardedStreamDecoder(plans, plans[0].sps, tile_devices)
+    for fid in keep:
+        dec.last_use[fid] = len(plans)
+    dec.decode_all()
+    for d in getattr(dec, "devices", [dec.device]):
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
+    done = [p for p in plans if p.nal_type != -1 and p.output_flag]
+    refs = _RefShim()
+    for plan in done:
+        refs.add(plan.frame_id, plan, dec.planes_of(plan.frame_id))
+    return _order_and_crop(done, refs), dec
 
 
 def decode_stream_native(data: bytes, device="cuda", stats=None,
@@ -152,8 +211,8 @@ def decode_stream_native(data: bytes, device="cuda", stats=None,
     ValueError. `device` is then not used; stats also get n_gops."""
     if tile_devices is not None and gop_devices is not None:
         raise ValueError("give tile_devices or gop_devices, not both")
-    if tile_devices is None and gop_devices is None:
-        dev = resolve(device)
+    dev = resolve(device) if tile_devices is None and gop_devices is None \
+        else None
     t0 = time.perf_counter()
     plans = _parse(data)
     t1 = time.perf_counter()
@@ -165,20 +224,8 @@ def decode_stream_native(data: bytes, device="cuda", stats=None,
                          decode_s=time.perf_counter() - t1,
                          n_strip_frames=0)
         return pics
-    done = [p for p in plans if p.nal_type != -1 and p.output_flag]
-    refs = _RefShim()
-    dec = None
-    if plans:
-        if tile_devices is None:
-            dec = DeviceStreamDecoder(plans, plans[0].sps, dev)
-        else:
-            dec = ShardedStreamDecoder(plans, plans[0].sps, tile_devices)
-        dec.decode_all()
-        for d in getattr(dec, "devices", [dec.device]):
-            if d.type == "cuda":
-                torch.cuda.synchronize(d)
-        for plan in done:
-            refs.add(plan.frame_id, plan, dec.planes_of(plan.frame_id))
+    pics, dec = _decode_plans(plans, dev, tile_devices=tile_devices) \
+        if plans else ([], None)
     t2 = time.perf_counter()
     if stats is not None:
         stats.update(parse_s=t1 - t0, decode_s=t2 - t1,
@@ -187,4 +234,74 @@ def decode_stream_native(data: bytes, device="cuda", stats=None,
                      n_host_frames=dec.n_host_frames if dec else 0,
                      n_hybrid_frames=dec.n_hybrid_frames if dec else 0,
                      n_strip_frames=getattr(dec, "n_strip_frames", 0))
-    return _order_and_crop(done, refs)
+    return pics
+
+
+def new_decoder(**kw) -> Decoder:
+    """A push decoder (decoder.Decoder); device="cuda" unless given."""
+    return Decoder(**kw)
+
+
+def push_data(dec: Decoder, data: bytes, pts=None):
+    dec.push_data(data, pts)
+
+
+def push_nal(dec: Decoder, data: bytes, pts=None):
+    dec.push_nal(data, pts)
+
+
+def flush_data(dec: Decoder):
+    dec.flush()
+
+
+def decode(dec: Decoder) -> bool:
+    return dec.decode()
+
+
+def reset(dec: Decoder):
+    """Reset decoder state for seeking (de265_reset)."""
+    dec.reset()
+
+
+def get_warning(dec: Decoder):
+    """Pop the oldest typed warning code or None (de265_get_warning)."""
+    return dec.get_warning()
+
+
+def get_next_picture(dec: Decoder):
+    """Pop the next DecodedPicture in output order, or None."""
+    return dec.get_next_picture()
+
+
+def peek_next_picture(dec: Decoder):
+    """Front of the output queue WITHOUT removing it
+    (de265_peek_next_picture); pair with release_next_picture."""
+    return dec.peek_next_picture()
+
+
+def release_next_picture(dec: Decoder):
+    """Drop the front of the output queue (de265_release_next_picture)."""
+    dec.get_next_picture()
+
+
+def decode_stream(data: bytes, stats=None, **kw):
+    """Convenience: decode a whole Annex-B stream through the push API;
+    returns the list of pictures. kw go to new_decoder (device="cuda"
+    unless given); stats, if a dict, gets the decoder's frame counts
+    (Decoder.stats)."""
+    dec = new_decoder(**kw)
+    dec.push_data(data)
+    dec.flush()
+    out = []
+    while True:
+        more = dec.decode()
+        while True:
+            pic = get_next_picture(dec)
+            if pic is None:
+                break
+            out.append(pic)
+        if not more:
+            break
+    if stats is not None:
+        stats.update(dec.stats)
+    return out

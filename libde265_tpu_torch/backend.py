@@ -5,14 +5,17 @@ bucketed on the host (`pack_tu_batches`), each bucket's residuals come
 from one batch on the device (ops/transform.tu_residuals, where the JAX
 module jits ops/transform_jax.residual_batch as `residual_batch_device`)
 and are added into the plane with the clip (`scatter_residuals`,
-`add_frame_residuals`). The JAX module's `reconstruct_frame_device` (a
-whole-frame entry that nothing calls) is not ported; device_decode.py is
-the hybrid path.
+`add_frame_residuals`). device_decode.py is the hybrid path.
+`reconstruct_frame_device` is the JAX module's whole-frame filter entry
+(backend.py:99-112): the in-loop filters of a plan whose prediction and
+residuals are already in `plan.planes`.
 """
 import numpy as np
 import torch
 
 from .convert import to_tensor
+from .device import resolve
+from .ops.filters_fused import apply_filters_fused
 from .ops.transform import tu_residuals
 from .plan import MODE_INTER, TU_CIDX, TU_COFF, TU_LOG2, TU_PM, TU_X, TU_Y
 
@@ -61,3 +64,23 @@ def add_frame_residuals(plan, planes, meta, pool, bitdepth=8):
         scatter_residuals(planes[cidx], res, to_tensor(meta[rows, TU_X], dev),
                           to_tensor(meta[rows, TU_Y], dev), log2, maxv)
     return planes
+
+
+def reconstruct_frame_device(plan, dpb=None, device=None):
+    """Deblock (when a slice has it on) and then SAO (K3, when a slice
+    has it on) the pre-filter [Y, Cb, Cr] planes in `plan.planes`, on
+    `device`: by default the planes' own device where they are tensors,
+    else "cuda". Sets `plan.planes` to the filtered int32 planes and
+    returns them. `dpb` is unused, as in the JAX function."""
+    planes = plan.planes
+    if device is not None:
+        dev = resolve(device)
+    elif torch.is_tensor(planes[0]):
+        dev = planes[0].device
+    else:
+        dev = resolve("cuda")
+    planes = [p.to(dev, torch.int32) if torch.is_tensor(p)
+              else to_tensor(np.asarray(p).astype(np.int32), dev)
+              for p in planes]
+    plan.planes = apply_filters_fused(plan, planes)
+    return plan.planes

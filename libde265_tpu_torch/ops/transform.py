@@ -81,9 +81,12 @@ def inv_transform_batch(d, log2, is_dst, bitdepth=8):
 
 def transform_skip_batch(d, log2, bitdepth=8):
     """Transform-skip residual (spec 8.6.4.2 with extended_precision
-    off): (d << 7) rounded down by 20 - bitdepth."""
+    off): (d << (5 + log2)) rounded down by 20 - bitdepth, as the numpy
+    reference (transform_ref.transform_skip_residual) has it. The JAX
+    function shifts by 7, the 4x4 shift, at every size (ROADMAP queue
+    3)."""
     shift = 20 - bitdepth
-    r = d.to(torch.int32) << 7
+    r = d.to(torch.int64) << (5 + log2)
     r = (r + (1 << (shift - 1))) >> shift
     return torch.clamp(r, -32768, 32767).to(torch.int32)
 
@@ -123,8 +126,7 @@ def tu_residuals(plan, meta, pool, rows, bitdepth, device):
     prediction mode, every row with coefficients), in their order: the
     dequant (with the frame's scaling matrix where the SPS enables
     scaling lists) and inverse transform in one batch, transform-skip and
-    bypass TUs through residual_kinds. Explicit RDPCM and transform skip
-    above 4x4 (transform_skip_batch shifts as for 4x4) take the numpy
+    bypass TUs through residual_kinds. Explicit-RDPCM TUs take the numpy
     reference per TU, uploaded in one copy."""
     m = meta[rows]
     cidx, log2 = int(m[0, TU_CIDX]), int(m[0, TU_LOG2])
@@ -152,7 +154,7 @@ def tu_residuals(plan, meta, pool, rows, bitdepth, device):
     if kinds:
         res = residual_kinds(res, c, qp, sm, to_tensor(kd, device), kinds,
                              log2, bitdepth)
-    host = np.nonzero((m[:, TU_RDPCM] > 0) | ((kd == 1) & (log2 > 2)))[0]
+    host = np.nonzero(m[:, TU_RDPCM] > 0)[0]
     if host.size:
         blocks = [scale_and_inv_transform(
             coeffs[i], int(m[i, TU_QP]), log2, is_dst, bool(kd[i] == 1),

@@ -2,8 +2,8 @@
 (PyTorch).
 
 Counterpart of libde265_tpu/parallel/gop_shard.py (split_gop_plans,
-decode_gops_sharded) and of gop_parallel.decode_gop_device, with a copy
-of gop_parallel.split_gops on the port's own bitstream/nal.py. An IRAP
+decode_gops_sharded); gop_parallel.py holds split_gops and
+decode_gop_device, the entry point over decode_gops. An IRAP
 picture is a restart point: a closed GOP references nothing before it,
 so GOPs decode as pure data parallelism with no communication. The JAX
 package runs one shard_map program over a mesh, each shard with a
@@ -25,42 +25,10 @@ import contextlib
 
 import torch
 
-from ..bitstream.nal import is_bla, is_cra, is_idr, is_vcl
 from ..device import resolve
 from ..device_stream import DeviceStreamDecoder
 from ..packing import frame_compatible, frame_has_intra, frame_has_mc
-
-
-def split_gops(stream: bytes):
-    """Split an Annex-B stream into self-contained segments, each starting
-    with the parameter sets + one IRAP. Returns list of byte strings."""
-    units = []
-    i = 0
-    n = len(stream)
-    while True:
-        j = stream.find(b"\x00\x00\x01", i)
-        if j < 0:
-            break
-        start = j - 1 if j > 0 and stream[j - 1] == 0 else j
-        k = stream.find(b"\x00\x00\x01", j + 3)
-        end = n if k < 0 else (k - 1 if stream[k - 1] == 0 else k)
-        t = (stream[j + 3] >> 1) & 0x3F
-        units.append((t, start, end))
-        i = j + 3
-    ps = b"".join(stream[s:e] for (t, s, e) in units if t in (32, 33, 34))
-    gops = []
-    cur = bytearray()
-    for (t, s, e) in units:
-        if t in (32, 33, 34):
-            continue
-        if is_vcl(t) and (is_idr(t) or is_bla(t) or is_cra(t)):
-            if cur:
-                gops.append(bytes(cur))
-            cur = bytearray()
-        cur += stream[s:e]
-    if cur:
-        gops.append(bytes(cur))
-    return [ps + g for g in gops]
+from .gop_parallel import split_gops  # noqa: F401  (one copy, there)
 
 
 def split_gop_plans(plans):

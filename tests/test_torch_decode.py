@@ -155,13 +155,16 @@ def test_frame_program_matches_jax():
 
 def test_port_runs_without_jax():
     """Importing every module of the port (parallel.tile_shard,
-    parallel.gop_shard and the hybrid path's device_decode, backend,
-    intra_wavefront, ops.inter, ops.inter_dense, ops.intra and
+    parallel.gop_shard, parallel.gop_parallel, the push API's decoder,
+    errors and bitstream.sei, and the hybrid path's device_decode,
+    backend, intra_wavefront, ops.inter, ops.inter_dense, ops.intra and
     ops.filters_fused among them) and decoding small streams on the CPU,
     one of them through the numpy host path, one through the hybrid
     device path, one at 10 bits, one through the pipelined decoder, one
-    through the tile-column decoder and one through the GOP decoder,
-    leaves jax and the JAX package (libde265_tpu) out of sys.modules."""
+    through the tile-column decoder, one through the GOP decoder (and
+    decode_gop_parallel) and one through the push API with its SEI hash
+    checks, leaves jax and the JAX package (libde265_tpu) out of
+    sys.modules."""
     code = (
         "import sys, pkgutil, importlib\n"
         "import libde265_tpu_torch as pkg\n"
@@ -173,6 +176,9 @@ def test_port_runs_without_jax():
         "          'ops.inter', 'ops.inter_dense', 'ops.intra',\n"
         "          'ops.filters_fused'}\n"
         "assert hybrid <= walked, hybrid - walked\n"
+        "push = {'parallel.gop_parallel', 'decoder', 'errors',\n"
+        "        'bitstream.sei'}\n"
+        "assert push <= walked, push - walked\n"
         "from libde265_tpu_torch.api import decode_stream_native\n"
         "for name, n, nh, nhyb in (('i_deblk_sao', 2, 0, 0),\n"
         "                          ('adv_rot_tsctx_wpp', 4, 1, 0),\n"
@@ -199,6 +205,23 @@ def test_port_runs_without_jax():
         "pics = decode_stream_native(data, stats=st,\n"
         "                            gop_devices=['cpu', 'cpu'])\n"
         "assert (len(pics), st['n_gops']) == (8, 2)\n"
+        "from libde265_tpu_torch.parallel.gop_parallel import \\\n"
+        "    decode_gop_parallel\n"
+        "frames = decode_gop_parallel(data, devices=['cpu'], stats=st)\n"
+        "assert (len(frames), st['route']) == (8, 'device')\n"
+        "from libde265_tpu_torch import api\n"
+        "dec = api.new_decoder(device='cpu')\n"
+        "data = open('tests/data/p_hash_sei.bin', 'rb').read()\n"
+        "for i in range(0, len(data), 500):\n"
+        "    api.push_data(dec, data[i:i + 500], pts=i)\n"
+        "api.flush_data(dec)\n"
+        "while api.decode(dec):\n"
+        "    pass\n"
+        "n = 0\n"
+        "while api.get_next_picture(dec) is not None:\n"
+        "    n += 1\n"
+        "assert (n, dec.hash_checks_passed) == (3, 3), n\n"
+        "assert api.get_warning(dec) is None\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'libde265_tpu')]\n"
         "assert not bad, bad\n"

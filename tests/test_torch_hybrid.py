@@ -442,3 +442,35 @@ def test_pipeline_and_gops_keep_refusing_hybrid_frames():
     assert (dec.n_pipelined_frames, dec.n_hybrid_frames) == (0, 4)
     with pytest.raises(ValueError, match="not one the frame program"):
         decode_gops(_plans("rxt_cqo"), plans[0].sps, ["cpu"])
+
+
+@pytest.mark.parametrize("name,sao", [("i_deblk_sao", True),
+                                      ("p_deblk", False)])
+def test_backend_reconstruct_frame_device_matches_jax(name, sao,
+                                                      monkeypatch):
+    """backend.reconstruct_frame_device (deblocking planned on the
+    device, then SAO through K3's plain version) against the JAX
+    package's backend.reconstruct_frame_device, from the same pre-filter
+    planes of the vector's IDR (the numpy reference with its loop
+    filters switched off); both equal the numpy reference's filtered
+    frame."""
+    from libde265_tpu import backend as JB
+    from libde265_tpu_torch import backend as B
+    from libde265_tpu_torch.reconstruct import reconstruct_frame
+    plan = _plans(name)[0]
+    shs = plan.slice_headers
+    assert any(not sh.slice_deblocking_filter_disabled_flag for sh in shs)
+    assert sao == any(sh.slice_sao_luma_flag or sh.slice_sao_chroma_flag
+                      for sh in shs)
+    full = reconstruct_frame(plan)
+    monkeypatch.setenv("DE265_DISABLE_DEBLOCK", "1")
+    monkeypatch.setenv("DE265_DISABLE_SAO", "1")
+    pre = reconstruct_frame(plan)
+    assert any(not np.array_equal(a, b) for a, b in zip(pre, full))
+    plan.planes = [p.copy() for p in pre]
+    want = JB.reconstruct_frame_device(plan)
+    plan.planes = [p.copy() for p in pre]
+    got = B.reconstruct_frame_device(plan, device="cpu")
+    assert plan.planes is got and got[0].dtype == torch.int32
+    _eq(got, want, name)
+    _eq(got, full, name)

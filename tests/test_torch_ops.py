@@ -44,8 +44,15 @@ def test_residual_batch(log2, is_dst):
     d = J.dequant_batch(jnp.asarray(c), jnp.asarray(qp), log2, 8)
     _eq(P.dequant_batch(torch.as_tensor(c), torch.as_tensor(qp), log2, 8),
         d, "dequant_batch")
-    _eq(P.transform_skip_batch(torch.as_tensor(np.asarray(d)), log2, 8),
-        J.transform_skip_batch(d, log2, 8), "transform_skip_batch")
+    # transform skip: the spec's 5 + log2 shift of the numpy reference at
+    # every size; the JAX function shifts by 7 (4x4's) at every size, so
+    # it is the reference at 4x4 only (ROADMAP queue 3)
+    from libde265_tpu.ops.transform_ref import transform_skip_residual
+    got = P.transform_skip_batch(torch.as_tensor(np.asarray(d)), log2, 8)
+    _eq(got, np.stack([transform_skip_residual(b, log2, 8)
+                       for b in np.asarray(d)]), "transform_skip_batch")
+    if log2 == 2:
+        _eq(got, J.transform_skip_batch(d, log2, 8), "transform_skip_batch")
 
 
 def _planes(rng, H, W):

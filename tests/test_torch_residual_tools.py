@@ -23,14 +23,45 @@ def _inputs(rng, log2, N, cmax):
 
 def _jax_kinds(res, c, qp, smat, kd, log2):
     """The JAX frame program's per-TU select (frame_program.py:1106-1120)
-    from transform_jax's functions."""
+    from transform_jax's functions, with the numpy reference's
+    transform-skip shift (5 + log2) above 4x4, where the JAX function
+    keeps 4x4's (ROADMAP queue 3)."""
     import jax.numpy as jnp
     from libde265_tpu.ops import transform_jax as TJ
+    from libde265_tpu.ops.transform_ref import transform_skip_residual
     d = TJ.dequant_batch(c, qp, log2, 8) if smat is None \
         else TJ.dequant_batch_sl(c, qp, smat, log2, 8)
     k = jnp.asarray(kd)[:, None, None]
-    res = jnp.where(k == 1, TJ.transform_skip_batch(d, log2, 8), res)
+    ts = TJ.transform_skip_batch(d, log2, 8) if log2 == 2 else \
+        jnp.asarray(np.stack([transform_skip_residual(b, log2, 8)
+                              for b in np.asarray(d)]))
+    res = jnp.where(k == 1, ts, res)
     return np.asarray(jnp.where(k == 2, c, res))
+
+
+@pytest.mark.parametrize("log2", [2, 3, 4, 5])
+def test_residual_kinds_transform_skip_matches_reference(log2):
+    """residual_kinds on transform-skip and bypass TUs, flat and
+    scaling-list dequant, against the numpy spec oracle TU by TU
+    (transform_ref.dequant, then transform_skip_residual: the 5 + log2
+    shift at every size)."""
+    from libde265_tpu.ops.transform_ref import (dequant,
+                                                transform_skip_residual)
+    from libde265_tpu_torch.ops import transform as T
+    rng = np.random.RandomState(60 + log2)
+    c, qp, smat = _inputs(rng, log2, 16, 3000)
+    kd = rng.randint(1, 3, 16).astype(np.int8)
+    tc, tq, ts = (torch.from_numpy(a) for a in (c, qp, smat))
+    res = torch.zeros_like(tc)
+    for sm in (None, smat[5]):
+        got = T.residual_kinds(res, tc, tq, None if sm is None
+                               else torch.from_numpy(sm),
+                               torch.from_numpy(kd), 3, log2).numpy()
+        for i in range(16):
+            want = c[i] if kd[i] == 2 else transform_skip_residual(
+                dequant(c[i], int(qp[i]), log2, 8, scaling_matrix=sm),
+                log2, 8)
+            assert np.array_equal(got[i], want), (i, kd[i])
 
 
 @pytest.mark.parametrize("log2", [2, 3, 4, 5])
