@@ -153,7 +153,28 @@ card.
 16. backend.reconstruct_frame_device on the card, from the pre-filter
    planes (numpy reference, loop filters off) of the IDRs of i_deblk_sao
    (deblocking and SAO) and p_deblk (deblocking only): equal to the
-   numpy reference's filtered frame, K3 launched 3 times and 0 times.
+   numpy reference's filtered frame, K3 launched 3 times and 0 times;
+17. the port's encoder (libde265_tpu_torch.encoder, numpy on the host):
+   it encodes a 1920x1080 stream of seeded content, an IDR and 3 P
+   frames at ld4k_light's settings (qp 37, 64x64 CTBs, 16x16 CUs, a
+   global-motion pan (-20, -12) qpel over two L0 references, TMVP,
+   deblocking, SAO, a picture-hash SEI after each frame), logging the
+   seconds of each frame; the card decodes it through
+   decode_stream_native and through the push API (64 KiB pushes),
+   counters zeroed just before each: every frame equal to the encoder's
+   reconstruction, every SEI hash checked and passed, no warning, no
+   host frame, K1 = 2 and K3 = 3 a frame, K2 = 2 a P frame, K4 = 2;
+   then a 512x128 stream of 4 tile columns from the port's encoder
+   through the tile-column decoder on ["cuda:0"] * 4 (every P frame as
+   strips, K5 2 a strip frame), equal to its reconstruction; then
+   rxt_cqo_scaling (scaling lists on the hybrid path; made by the port's
+   encoder) on the card, every frame hybrid and MD5-equal to
+   manifest_torch.json; then parallel.tile_mesh's step on ["cuda:0"] * 2
+   and * 4 at 1920x1080 and 3840x2160 (demo inputs, one 16x16 TU per
+   two blocks), equal to the CPU run (plane and int64 checksum) and
+   timed by CUDA events; then utils.quality's psnr and ssim of the
+   decoded 1080p frames against their sources on the card, equal to the
+   CPU values.
 
 Any failure exits non-zero. The last stdout line is the JSON
 {"ok": true, "device": {...}}; the line before it is the card's name and
@@ -236,6 +257,24 @@ PART_B.update({n: ("manifest_adv.json", 0) for n in (
 PART_B.update({"adv_erdpcm_dep": ("manifest_adv.json", 3),
                "rxt_erdpcm": ("manifest_rext_tools.json", 3),
                "rxt_erdpcm_rot_tsctx": ("manifest_rext_tools.json", 3)})
+
+# phase 17: the port's encoder. A 1080p stream at ld4k_light's settings
+# (tools/gen_bench_stream.py --light), an IDR and 3 P frames, hash SEI on
+ENC_W, ENC_H, ENC_FRAMES = 1920, 1080, 4
+ENC_SETTINGS = dict(qp=37, inter_mode="gmv", global_mv=(-20, -12),
+                    inter_residual=True, log2_ctb=6, cu_log2=4, num_ref_l0=2,
+                    temporal_mvp=True, disable_deblocking=False, sao=True,
+                    write_hash_sei=True)
+# a small stream of 4 tile columns (p_tiles4_mv's settings in one row)
+ENC_TILED = (512, 128, dict(qp=30, inter_mode="mv", inter_residual=True,
+                            tiles=(4, 1), log2_ctb=6, cu_log2=4,
+                            num_ref_l0=2, temporal_mvp=True,
+                            disable_deblocking=False, sao=True))
+# rxt_cqo_scaling: every frame hybrid (tools/gen_torch_hybrid_scaling_stream.py)
+SCALING_HYBRID = "rxt_cqo_scaling"
+# parallel.tile_mesh shapes (H, W) and tile counts
+MESH_SHAPES = ((1080, 1920), (2160, 3840))
+MESH_TILES = (2, 4)
 
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s, and int32
 # operations/s on the CUDA cores (64 int32 lanes per SM and clock, half
@@ -1409,6 +1448,119 @@ def check_backend_filters(dev, counters):
     return out
 
 
+def encoder_frames(n, w, h, seed=1080):
+    """Seeded 8-bit 4:2:0 content for the encoder: make_frames_light's
+    field (tools/gen_bench_stream.py) with a 16x16-blocky texture drawn
+    from `seed`, panned by (3, 5) samples a frame (the (-20, -12) qpel
+    global MV), a flat box of h / 4 moving over it, and slow chroma
+    waves."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    gy, gx = np.mgrid[0:h, 0:w]
+    tex = np.kron(rng.randint(0, 24, (h // 16 + 1, w // 16 + 1)),
+                  np.ones((16, 16), np.int64))[:h, :w]
+    base = np.clip(80 + 70 * np.sin(gx / 37.0) * np.cos(gy / 29.0) + tex,
+                   0, 255).astype(np.uint8)
+    cy, cx = np.mgrid[0:h // 2, 0:w // 2]
+    frames = []
+    for t in range(n):
+        y = np.roll(base, (t * 3, t * 5), (0, 1)).copy()
+        b = h // 4
+        bx, by = (31 * t) % (w - b), (17 * t) % (h - b)
+        y[by:by + b, bx:bx + b] = 210
+        u = np.clip(128 + 50 * np.sin(cx / 41.0 + t * .4), 0,
+                    255).astype(np.uint8)
+        v = np.clip(128 + 50 * np.cos(cy / 33.0 - t * .2), 0,
+                    255).astype(np.uint8)
+        frames.append([y, u, v])
+    return frames
+
+
+def port_encode(w, h, settings, frames):
+    """Encode `frames` with the port's encoder. Returns (stream, the
+    encoder's reconstruction of each frame, host seconds of each)."""
+    from libde265_tpu_torch.encoder import Encoder, EncoderConfig
+    enc = Encoder(EncoderConfig(width=w, height=h, **settings))
+    recon, secs = [], []
+    encode_frame = enc._encode_frame
+
+    def encode_and_keep(*a):
+        t0 = time.perf_counter()
+        out = encode_frame(*a)
+        secs.append(time.perf_counter() - t0)
+        recon.append([p.copy() for p in enc.recon])
+        return out
+    enc._encode_frame = encode_and_keep
+    return enc.encode(frames), recon, secs
+
+
+def recon_check(name, pics, recon):
+    """Every picture equal to the encoder's reconstruction, MD5 for MD5."""
+    import numpy as np
+    if len(pics) != len(recon):
+        fail(f"{name}: {len(pics)} pictures, the encoder made {len(recon)}")
+    for i, (pic, rec) in enumerate(zip(pics, recon)):
+        got = [hashlib.md5(np.ascontiguousarray(p).tobytes()).hexdigest()
+               for p in pic.planes]
+        want = [hashlib.md5(np.ascontiguousarray(p).tobytes()).hexdigest()
+                for p in rec]
+        if got != want:
+            fail(f"{name} frame {i} (poc {pic.poc}): MD5 {got} != the "
+                 f"encoder's reconstruction {want}")
+
+
+def check_tile_mesh():
+    """parallel.tile_mesh's step on ["cuda:0"] * tiles against the same
+    step on the CPU (plane and checksum exact), and its time on the card
+    (CUDA events, inputs on the card). Returns [(H, W, tiles, n_tu, ms,
+    checksum)]."""
+    import torch
+    from libde265_tpu_torch.parallel import tile_mesh as T
+    out = []
+    for H, W in MESH_SHAPES:
+        for tiles in MESH_TILES:
+            n_tu = (H // 16) * (W // 16) // 2 // tiles * tiles
+            inp = T.demo_inputs(H, W, tiles, n_tu)
+            step = T.make_tile_recon_step(["cuda:0"] * tiles, H, W, tiles,
+                                          n_tu)
+            card = [torch.as_tensor(a, device="cuda") for a in inp]
+            got = step(*card)
+            want = T.make_tile_recon_step(["cpu"] * tiles, H, W, tiles,
+                                          n_tu)(*inp)
+            require_equal(f"tile_mesh {W}x{H} on {tiles} x cuda:0",
+                          [g.cpu() for g in got], list(want))
+            if not got[0].is_cuda:
+                fail(f"tile_mesh {W}x{H}: plane on {got[0].device}")
+            ms = cuda_time(lambda: step(*card), 20)
+            out.append((H, W, tiles, n_tu, ms, int(want[1])))
+    return out
+
+
+def check_quality(pics, frames):
+    """utils.quality's psnr and ssim of each decoded picture's planes
+    against the source, on the card and on the CPU: equal to 1e-12.
+    Returns the card's [(psnr Y, U, V, ssim Y)] per picture."""
+    import numpy as np
+    import torch
+    from libde265_tpu_torch.utils import quality as Q
+    out = []
+    for i, (pic, src) in enumerate(zip(pics, frames)):
+        row = []
+        for c, (p, s_) in enumerate(zip(pic.planes, src)):
+            a = torch.as_tensor(np.asarray(p), device="cuda")
+            b = torch.as_tensor(s_, device="cuda")
+            vals = [(Q.psnr(a, b), Q.psnr(p, s_))]
+            if c == 0:
+                vals.append((Q.ssim(a, b), Q.ssim(p, s_)))
+            for got, want in vals:
+                if not abs(got - want) <= 1e-12 * abs(want):
+                    fail(f"quality frame {i} plane {c}: card {got!r}, CPU "
+                         f"{want!r}")
+            row += [v[0] for v in vals]
+        out.append(row)
+    return out
+
+
 def main():
     try:
         import torch
@@ -1885,6 +2037,98 @@ def main():
     for name, k3n in check_backend_filters(dev, counters):
         log(f"backend.reconstruct_frame_device {name} IDR: equal to the "
             f"numpy reference's filtered frame; K3 launched {k3n} times")
+
+    # ---- 17: the port's encoder; its streams decoded on the card
+    from libde265_tpu_torch.api import decode_stream_native as dsn
+    frames17 = encoder_frames(ENC_FRAMES, ENC_W, ENC_H)
+    t0 = time.perf_counter()
+    edata, erec, esecs = port_encode(ENC_W, ENC_H, ENC_SETTINGS, frames17)
+    ewall = time.perf_counter() - t0
+    log(f"port encoder {ENC_W}x{ENC_H} (ld4k_light's settings, hash SEI): "
+        f"{len(edata)} bytes for {ENC_FRAMES} frames in {ewall:.3f} s on "
+        f"the host, {ewall / ENC_FRAMES:.3f} s a frame; frames "
+        f"{', '.join(f'{x:.3f}' for x in esecs)} s")
+    torch.cuda.synchronize()
+    for f in counters:
+        f.launches = 0
+    est = {}
+    t0 = time.perf_counter()
+    epics = dsn(edata, device="cuda", stats=est)
+    e_wall = time.perf_counter() - t0
+    eln = [f.launches for f in counters]
+    recon_check("port-encoded 1080p", epics, erec)
+    n17 = len(erec)
+    want17 = [2 * n17, 2 * (n17 - 1), 3 * n17, 2, 0]
+    log(f"decode_stream_native port-encoded 1080p: {len(epics)} frames "
+        f"equal to the encoder's reconstruction; n_host_frames "
+        f"{est['n_host_frames']}, n_hybrid_frames {est['n_hybrid_frames']}; "
+        f"launches K1 {eln[0]}, K2 {eln[1]}, K3 {eln[2]}, K4 {eln[3]}, K5 "
+        f"{eln[4]}; wall {e_wall:.3f} s = {n17 / e_wall:.2f} fps (parse "
+        f"{est['parse_s']:.3f} s, pack {est['pack_s']:.3f} s, device decode "
+        f"incl. pack and download {est['decode_s']:.3f} s)")
+    if est["n_host_frames"] or est["n_hybrid_frames"] or eln != want17:
+        fail(f"port-encoded 1080p: host {est['n_host_frames']}, hybrid "
+             f"{est['n_hybrid_frames']}, launches {eln}; want 0, 0, {want17}")
+    torch.cuda.synchronize()
+    for f in counters:
+        f.launches = 0
+    qpics, qdec, qwall = push_decode(edata, 64 * 1024, "cuda")
+    qln = [f.launches for f in counters]
+    recon_check("port-encoded 1080p, push API", qpics, erec)
+    nh17, ws17 = sei_hash_count(edata), warnings_of(qdec)
+    log(f"push API port-encoded 1080p: {len(qpics)} frames equal to the "
+        f"encoder's reconstruction; SEI hash checks passed "
+        f"{qdec.hash_checks_passed} of {nh17}; warnings {ws17}; launches "
+        f"K1 {qln[0]}, K2 {qln[1]}, K3 {qln[2]}, K4 {qln[3]}; wall "
+        f"{qwall:.3f} s = {n17 / qwall:.2f} fps")
+    if nh17 != n17 or qdec.hash_checks_passed != n17 or ws17 \
+            or qln != want17 or qdec.stats["n_host_frames"]:
+        fail(f"push API port-encoded 1080p: hash checks "
+             f"{qdec.hash_checks_passed} of {nh17} (want {n17}), warnings "
+             f"{ws17}, launches {qln} (want {want17})")
+    qual = check_quality(epics, frames17)
+    log("quality.psnr / ssim on the card (equal to the CPU values): "
+        + "; ".join(f"frame {i} PSNR Y {r[0]:.4f} U {r[2]:.4f} V "
+                    f"{r[3]:.4f} dB, SSIM Y {r[1]:.6f}"
+                    for i, r in enumerate(qual)))
+    del epics, qpics, qdec
+    tw, th, tset = ENC_TILED
+    ncols = tset["tiles"][0]
+    tdata, trec, _ = port_encode(tw, th, tset, encoder_frames(4, tw, th))
+    torch.cuda.synchronize()
+    for f in counters:
+        f.launches = 0
+    tst17 = {}
+    tpics = dsn(tdata, device="cuda", stats=tst17,
+                tile_devices=["cuda:0"] * ncols)
+    tln17 = [f.launches for f in counters]
+    recon_check("port-encoded tiles", tpics, trec)
+    nf, ns = len(tpics), tst17["n_strip_frames"]
+    twant = [2 * nf, 2 * ncols * ns, 3 * (nf - ns + ncols * ns), None,
+             2 * ns]
+    log(f"tile-column decoder, port-encoded {tw}x{th} ({ncols} tile "
+        f"columns on cuda:0): {nf} frames equal to the encoder's "
+        f"reconstruction; strip frames {ns}; launches K1 {tln17[0]}, K2 "
+        f"{tln17[1]}, K3 {tln17[2]}, K4 {tln17[3]}, K5 {tln17[4]}")
+    if ns != nf - 1 or tst17["n_host_frames"] or tln17[3] < 1 or \
+            [tln17[i] for i in (0, 1, 2, 4)] != \
+            [twant[i] for i in (0, 1, 2, 4)]:
+        fail(f"port-encoded tiles: {ns} strip frames of {nf - 1}, launches "
+             f"{tln17}; want {twant} (K4 >= 1)")
+    with open(os.path.join(DATA, SCALING_HYBRID + ".bin"), "rb") as f:
+        sdata17 = f.read()
+    sp, ss, sl, _ = decode(SCALING_HYBRID, sdata17, "manifest_torch.json")
+    log(f"decode {SCALING_HYBRID} (scaling lists on the hybrid path): "
+        f"{len(sp)} frames MD5-equal to manifest_torch.json; "
+        f"n_hybrid_frames {ss['n_hybrid_frames']}, n_host_frames "
+        f"{ss['n_host_frames']}; launches K1 {sl[0]}, K3 {sl[2]}")
+    if (ss["n_hybrid_frames"], ss["n_host_frames"]) != (len(sp), 0):
+        fail(f"{SCALING_HYBRID}: {ss['n_hybrid_frames']} hybrid and "
+             f"{ss['n_host_frames']} host frames; want every frame hybrid")
+    for H, W, tiles, n_tu, ms, csum in check_tile_mesh():
+        log(f"tile_mesh step {W}x{H} on {tiles} x cuda:0, {n_tu} TUs: "
+            f"equal to the CPU run (checksum {csum}); {ms:.4f} ms a step "
+            f"(CUDA events)")
 
     ms_i, ms_p = frame_times(dev, plans)
     log(f"frame program (CUDA events): 4K IDR {ms_i:.3f} ms, 4K P frame "

@@ -1,13 +1,14 @@
 """Copy of the decoded-picture-hash part of libde265_tpu/bitstream/sei.py
 (the port keeps its own copies of the host modules and imports nothing
-of the JAX package): parse_sei and the hash check, without the SEI
-writer of the encoder.
+of the JAX package): parse_sei, the hash check and the encoder's SEI
+writer.
 
 SEI message parsing + decoded-picture-hash verification (spec Annex D).
 
 Capability counterpart of libde265/sei.{h,cc}: parses SEI payloads,
 implements decoded_picture_hash (MD5 / CRC / checksum) computation over
-reconstructed planes and comparison (sei.cc:251-360).
+reconstructed planes and comparison (sei.cc:251-360). Also provides the
+writer used by the encoder (encoder/), so its streams are self-checking.
 """
 import hashlib
 from dataclasses import dataclass, field
@@ -116,3 +117,27 @@ def verify_picture_hash(planes, ph: DecodedPictureHash, bitdepth=8) -> bool:
         if compute_plane_hash(plane, ph.hash_type, bitdepth) != ph.digests[i]:
             return False
     return True
+
+
+def write_picture_hash_sei(planes, hash_type=HASH_MD5, bitdepth=8) -> bytes:
+    """Build a suffix-SEI NAL (type 40) carrying decoded_picture_hash."""
+    from ..encoder.cabac_enc import BitWriter, add_emulation_prevention
+    from ..encoder.headers import nal_header
+    digests = b"".join(compute_plane_hash(p, hash_type, bitdepth) for p in planes)
+    payload = bytes([hash_type]) + digests
+    w = BitWriter()
+    nal_header(w, 40)  # SUFFIX_SEI
+    t = SEI_DECODED_PICTURE_HASH
+    while t >= 255:
+        w.put_bits(0xFF, 8)
+        t -= 255
+    w.put_bits(t, 8)
+    size = len(payload)
+    while size >= 255:
+        w.put_bits(0xFF, 8)
+        size -= 255
+    w.put_bits(size, 8)
+    for b in payload:
+        w.put_bits(b, 8)
+    w.rbsp_trailing()
+    return add_emulation_prevention(w.data())

@@ -706,3 +706,97 @@ def test_hybrid_path_on_card(cuda, name, hybrid):
     assert dec.slot_of == ref.slot_of
     for a, b in zip(dec.state(), ref.state()):
         assert torch.equal(a.cpu(), b)
+
+
+def test_scaling_list_hybrid_vector_on_card(cuda):
+    """rxt_cqo_scaling (scaling lists, transform skip and CU chroma QP
+    offsets; made by the port's encoder) on the card: every frame on the
+    hybrid path, MD5-equal to manifest_torch.json, and the final state
+    equal to the CPU decode's."""
+    from libde265_tpu_torch.device_stream import DeviceStreamDecoder
+    name = "rxt_cqo_scaling"
+    with open(os.path.join(DATA, "manifest_torch.json")) as f:
+        m = json.load(f)[name]
+    plans = _plans(name)
+    dec = DeviceStreamDecoder(plans, plans[0].sps, "cuda")
+    dec.decode_all()
+    assert (dec.n_hybrid_frames, dec.n_host_frames) == (4, 0)
+    for i, p in enumerate(plans):
+        got = [hashlib.md5(np.ascontiguousarray(a).tobytes()).hexdigest()
+               for a in dec.planes_of(p.frame_id)]
+        assert got == [m["md5"][i][k] for k in ("y", "u", "v")], i
+    ref = DeviceStreamDecoder(_plans(name), plans[0].sps, "cpu")
+    ref.decode_all()
+    for a, b in zip(dec.state(), ref.state()):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("tiles", [2, 4])
+def test_tile_mesh_on_card(cuda, tiles):
+    """parallel.tile_mesh on ["cuda:0"] * tiles: the plane and the int64
+    checksum equal to the CPU run, the plane on the card."""
+    from libde265_tpu_torch.parallel import tile_mesh as T
+    H, W, n_tu = 272, 480, 64
+    inp = T.demo_inputs(H, W, tiles, n_tu)
+    got = T.make_tile_recon_step(["cuda:0"] * tiles, H, W, tiles,
+                                 n_tu)(*inp)
+    want = T.make_tile_recon_step(["cpu"] * tiles, H, W, tiles, n_tu)(*inp)
+    assert got[0].is_cuda and got[1].is_cuda
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+
+
+def test_quality_on_card(cuda):
+    """utils.quality on card tensors equals the values of the same planes
+    on the CPU (ssd / sad / mse exact, psnr / ssim to 1e-12)."""
+    from libde265_tpu_torch.utils import quality as Q
+    rng = np.random.RandomState(5)
+    a = rng.randint(0, 1024, (1080, 1920)).astype(np.uint16)
+    b = np.clip(a.astype(np.int64) + rng.randint(-7, 8, a.shape), 0,
+                1023).astype(np.uint16)
+    ta = torch.as_tensor(a.astype(np.int32), device="cuda")
+    tb = torch.as_tensor(b.astype(np.int32), device="cuda")
+    for f in (Q.ssd, Q.sad, Q.mse):
+        assert f(ta, tb) == f(a, b)
+    assert Q.psnr(ta, tb, 1023) == pytest.approx(Q.psnr(a, b, 1023),
+                                                 rel=1e-12)
+    assert Q.ssim(ta, tb) == pytest.approx(Q.ssim(a, b), rel=1e-12)
+
+
+@pytest.mark.parametrize("settings", [
+    dict(inter_mode="gmv", global_mv=(-20, -12), inter_residual=True,
+         log2_ctb=6, cu_log2=4, num_ref_l0=2, temporal_mvp=True, sao=True,
+         disable_deblocking=False, write_hash_sei=True, qp=37),
+    dict(inter_mode="mixed", inter_residual=True, tiles=(2, 1), sao=True,
+         disable_deblocking=False)])
+def test_port_encoded_stream_on_card(cuda, settings):
+    """A stream from the port's encoder decoded on the card: every frame
+    equal to the encoder's reconstruction."""
+    from libde265_tpu_torch.api import decode_stream_native
+    from libde265_tpu_torch.encoder import Encoder, EncoderConfig
+    rng = np.random.RandomState(12)
+    H, W = 128, 192
+    base = np.kron(rng.randint(0, 256, (H // 8 + 4, W // 8 + 8)),
+                   np.ones((8, 8), np.int64))
+    frames = [[np.clip(base[t:t + H, 2 * t:2 * t + W], 0, 255)
+               .astype(np.uint8),
+               np.full((H // 2, W // 2), 120 + t, np.uint8),
+               np.full((H // 2, W // 2), 131 - t, np.uint8)]
+              for t in range(3)]
+    enc = Encoder(EncoderConfig(width=W, height=H, **settings))
+    recon = []
+    encode_frame = enc._encode_frame
+
+    def keep(*a):
+        out = encode_frame(*a)
+        recon.append([p.copy() for p in enc.recon])
+        return out
+    enc._encode_frame = keep
+    data = enc.encode(frames)
+    kw = {"tile_devices": ["cuda:0"] * 2} if "tiles" in settings else {}
+    st = {}
+    pics = decode_stream_native(data, device="cuda", stats=st, **kw)
+    assert len(pics) == 3 and st["n_host_frames"] == 0
+    for pic, rec in zip(pics, recon):
+        for p, r in zip(pic.planes, rec):
+            assert np.array_equal(np.asarray(p), r)

@@ -163,8 +163,10 @@ def test_port_runs_without_jax():
     device path, one at 10 bits, one through the pipelined decoder, one
     through the tile-column decoder, one through the GOP decoder (and
     decode_gop_parallel) and one through the push API with its SEI hash
-    checks, leaves jax and the JAX package (libde265_tpu) out of
-    sys.modules."""
+    checks; then encoding a small stream with the port's encoder (hash
+    SEI on), decoding it through the push API with every hash checked,
+    scoring it with utils.quality and running parallel.tile_mesh's step,
+    leaves jax and the JAX package (libde265_tpu) out of sys.modules."""
     code = (
         "import sys, pkgutil, importlib\n"
         "import libde265_tpu_torch as pkg\n"
@@ -222,6 +224,34 @@ def test_port_runs_without_jax():
         "    n += 1\n"
         "assert (n, dec.hash_checks_passed) == (3, 3), n\n"
         "assert api.get_warning(dec) is None\n"
+        "enc = {'encoder', 'encoder.rdo', 'dpb', 'motion', 'utils.quality',\n"
+        "       'utils.visualize', 'utils.configparam', 'parallel.tile_mesh',\n"
+        "       'bitstream.cabac', 'bitstream.contextmodel', 'bitstream.ctu'}\n"
+        "assert enc <= walked, enc - walked\n"
+        "import numpy as np\n"
+        "from libde265_tpu_torch.encoder import Encoder, EncoderConfig\n"
+        "from libde265_tpu_torch.utils.quality import psnr\n"
+        "rng = np.random.RandomState(0)\n"
+        "src = [[rng.randint(0, 256, s).astype(np.uint8)\n"
+        "        for s in ((64, 64), (32, 32), (32, 32))] for _ in range(2)]\n"
+        "cfg = EncoderConfig(inter_mode='mixed', inter_residual=True,\n"
+        "                    write_hash_sei=True, sao=True)\n"
+        "data = Encoder(cfg).encode(src)\n"
+        "dec = api.new_decoder(device='cpu')\n"
+        "api.push_data(dec, data)\n"
+        "api.flush_data(dec)\n"
+        "while api.decode(dec):\n"
+        "    pass\n"
+        "pics = []\n"
+        "while (p := api.get_next_picture(dec)) is not None:\n"
+        "    pics.append(p)\n"
+        "assert (len(pics), dec.hash_checks_passed) == (2, 2)\n"
+        "assert 10 < psnr(pics[0].planes[0], src[0][0]) < 99\n"
+        "from libde265_tpu_torch.parallel import tile_mesh\n"
+        "inp = tile_mesh.demo_inputs(32, 64, 2, 8)\n"
+        "out, s = tile_mesh.make_tile_recon_step(['cpu'] * 2, 32, 64, 2,\n"
+        "                                        8)(*inp)\n"
+        "assert int(s) == int(out.sum())\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'libde265_tpu')]\n"
         "assert not bad, bad\n"

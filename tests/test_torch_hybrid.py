@@ -21,7 +21,7 @@ import pytest
 import torch
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
-STAGE_VECTORS = ["rxt_cqo", "adv_erdpcm_dep"]
+STAGE_VECTORS = ["rxt_cqo", "adv_erdpcm_dep", "rxt_cqo_scaling"]
 # the committed vectors with frames that frame_compatible refuses ->
 # (hybrid frames, numpy host frames): host = frame_uses_rext_tools
 REFUSED = {"rxt_cqo": (4, 0), "adv_cqo_tiles": (4, 0),
@@ -31,6 +31,11 @@ REFUSED = {"rxt_cqo": (4, 0), "adv_cqo_tiles": (4, 0),
            "rxt_ccp_444": (0, 4), "rxt_ccp_cqo_444": (0, 3),
            "rxt_ccp_rot_444": (0, 3), "rxt_kitchen": (0, 4),
            "rxt_smooth_off": (0, 3)}
+# rxt_cqo_scaling (tools/gen_torch_hybrid_scaling_stream.py): rxt_cqo's CU
+# chroma QP offsets with SPS scaling lists and transform skip, made by the
+# port's encoder: every frame hybrid, its residuals through the scaling-
+# list batches of ops/transform.tu_residuals
+SCALING_HYBRID = (4, 0)
 
 
 def _data(name):
@@ -44,8 +49,9 @@ def _plans(name):
 
 
 def _manifest(name):
-    mf = {"adv": "manifest_adv.json",
-          "rxt": "manifest_rext_tools.json"}[name.split("_")[0]]
+    mf = "manifest_torch.json" if name == "rxt_cqo_scaling" else \
+        {"adv": "manifest_adv.json",
+         "rxt": "manifest_rext_tools.json"}[name.split("_")[0]]
     with open(os.path.join(DATA, mf)) as f:
         return json.load(f)[name]
 
@@ -113,7 +119,7 @@ def jax_frames(request):
         mp.setattr(jff, "apply_filters_fused", filters)
         mp.setattr(jdd, "reconstruct_frame_device", frame)
         JaxDec(plans, plans[0].sps).decode_all()
-    assert len(rec) == REFUSED[name][0]
+    assert len(rec) == REFUSED.get(name, SCALING_HYBRID)[0]
     return name, plans, rec
 
 
@@ -375,6 +381,26 @@ def test_refused_frames_route_as_jax(name):
     want = (len(refused) - sum(rext), sum(rext))
     assert want == REFUSED[name]
     assert (st["n_hybrid_frames"], st["n_host_frames"]) == want
+
+
+def test_scaling_list_frames_take_the_hybrid_path():
+    """rxt_cqo_scaling through decode_stream_native on the CPU: scaling
+    lists on, every frame on the hybrid path, none on the host, MD5-equal
+    to its golden in manifest_torch.json."""
+    from libde265_tpu_torch.api import decode_stream_native
+    from libde265_tpu_torch.packing import frame_compatible
+    name = "rxt_cqo_scaling"
+    m = _manifest(name)
+    plans = _plans(name)
+    assert plans[0].sps.scaling_list_enable_flag
+    assert not any(frame_compatible(p) for p in plans)
+    st = {}
+    pics = decode_stream_native(_data(name), device="cpu", stats=st)
+    assert (len(pics), st["n_hybrid_frames"], st["n_host_frames"]) == \
+        (m["frames"], *SCALING_HYBRID)
+    for i, pic in enumerate(pics):
+        got = [pic.plane_md5(c) for c in range(3)]
+        assert got == [m["md5"][i][k] for k in ("y", "u", "v")], i
 
 
 def test_refused_frame_totals():
