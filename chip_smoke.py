@@ -174,7 +174,30 @@ card.
    two blocks), equal to the CPU run (plane and int64 checksum) and
    timed by CUDA events; then utils.quality's psnr and ssim of the
    decoded 1080p frames against their sources on the card, equal to the
-   CPU values.
+   CPU values;
+18. the per-picture push decoder, api.new_decoder(device="cuda",
+   parse="python") (every slice parsed in Python, each picture
+   reconstructed on the card when it ends): ld4k_light cut to its IDR
+   and 8 P frames (the Python parse of all 33 takes ~2 minutes there)
+   pushed in 64 KiB pieces, a player's loop (decode() after every push),
+   counters zeroed just before: every frame MD5-equal with its pts,
+   pictures out before the flush, no host, hybrid or concealed frame, no
+   warning, K1 = 18, K2 = 16, K3 = 27, K4 = 2; the Python parse seconds,
+   the host ms of each picture's PictureStreamDecoder.prepare (checks,
+   packing), the ms of its launch (CUDA events around launch, the host's
+   enqueue gaps included) and the wall beside phases 14 and 4; then the
+   119 small vectors and
+   rxt_cqo_scaling in 997-byte pushes, MD5-equal, each with phase 13's
+   hybrid and host frame counts (24 and 21 in all); then the recovery
+   cases of tests/data/manifest_torch_recovery.json (the JAX decoder's
+   pictures, warnings, statuses and hash checks, from
+   tools/gen_torch_recovery_goldens.py; the fuzzed p_slices2 streams also
+   through the default path, which hands their segment over); then the
+   fuzz file id_009 (a 25-bit SPS) through both push decoders on the
+   card and the per-picture one on the CPU, the SPS refused, the same
+   pictures and warnings. Phases 14 and 17 fail if the default push
+   decoder hands a segment of their clean streams to the per-picture
+   path (stats n_python_segments).
 
 Any failure exits non-zero. The last stdout line is the JSON
 {"ok": true, "device": {...}}; the line before it is the card's name and
@@ -185,7 +208,8 @@ for K1 and K5, the library yardstick's time; the rows of step 10 carry
 the launches of the Main 10 decode, those of step 12 the launches of the
 4:2:2 decode (K3, K4) or of the small vectors of that format (the 4:4:4
 and monochrome K4 rows), the row of step 13 the K3 launches of the
-hybrid 4K decode.
+hybrid 4K decode, the last four rows the launches of step 18's
+ld4k_light decode beside the times of step 3.
 
     python3 chip_smoke.py
 """
@@ -272,6 +296,15 @@ ENC_TILED = (512, 128, dict(qp=30, inter_mode="mv", inter_residual=True,
                             disable_deblocking=False, sao=True))
 # rxt_cqo_scaling: every frame hybrid (tools/gen_torch_hybrid_scaling_stream.py)
 SCALING_HYBRID = "rxt_cqo_scaling"
+# phase 18: ld4k_light cut to its first pictures (IDR + 8 P): the Python
+# parse of all 33 takes ~2 minutes on the card's host (PERF.md section 5)
+PUSH_PYTHON_FRAMES = 9
+# phase 18: a fuzz file whose SPS codes 25-bit luma samples
+DEEP_SPS = "id_009_intra_104x72_q26_flip2"
+# phase 18: the 119 small vectors of these manifests (and rxt_cqo_scaling)
+SMALL_MANIFESTS = ("manifest.json", "manifest_inter.json",
+                   "manifest_rext.json", "manifest_rext_tools.json",
+                   "manifest_adv.json")
 # parallel.tile_mesh shapes (H, W) and tile counts
 MESH_SHAPES = ((1080, 1920), (2160, 3840))
 MESH_TILES = (2, 4)
@@ -1362,7 +1395,9 @@ def sei_hash_count(data):
 def push_decode(data, chunk, device):
     """Push `data` into new_decoder(device) in `chunk`-byte pieces, pts =
     piece index; decode until decode() returns False, then drain the
-    pictures. Returns (pictures, decoder, host wall s)."""
+    pictures. Every stream given here is clean: fails if a segment went
+    to the per-picture path (stats n_python_segments). Returns
+    (pictures, decoder, host wall s)."""
     from libde265_tpu_torch import api
     t0 = time.perf_counter()
     dec = api.new_decoder(device=device)
@@ -1379,7 +1414,12 @@ def push_decode(data, chunk, device):
             pics.append(p)
         if not more:
             break
-    return pics, dec, time.perf_counter() - t0
+    wall = time.perf_counter() - t0
+    if dec.stats["n_python_segments"]:
+        fail(f"push API: {dec.stats['n_python_segments']} of "
+             f"{dec.stats['n_segments']} segments of a clean stream handed "
+             f"to the per-picture path")
+    return pics, dec, wall
 
 
 def warnings_of(dec):
@@ -1561,6 +1601,233 @@ def check_quality(pics, frames):
     return out
 
 
+def small_vectors():
+    """The committed small vectors: every entry of the five small
+    manifests, then rxt_cqo_scaling -> manifest."""
+    out = {}
+    for man in SMALL_MANIFESTS:
+        with open(os.path.join(DATA, man)) as f:
+            out.update((name, man) for name in json.load(f))
+    out[SCALING_HYBRID] = "manifest_torch.json"
+    return out
+
+
+def manifest_md5s(name, manifest):
+    """The manifest's per-frame MD5 lists (luma only for monochrome)."""
+    with open(os.path.join(DATA, manifest)) as f:
+        man = json.load(f)[name]
+    return [[m[c] for c in ("y", "u", "v") if c in m] for m in man["md5"]]
+
+
+def first_pictures(data, n):
+    """`data` cut before the NAL of the (n+1)-th picture's first slice."""
+    i = data.find(b"\x00\x00\x01")
+    k = 0
+    while i >= 0:
+        t = (data[i + 3] >> 1) & 0x3F
+        if t < 32 and data[i + 5] & 0x80:       # first_slice_segment_in_pic
+            if k == n:
+                return data[:i - (i > 0 and data[i - 1] == 0)]
+            k += 1
+        i = data.find(b"\x00\x00\x01", i + 3)
+    return data
+
+
+def live_push(data, chunk, device, parse):
+    """A player's loop: push `data` in `chunk`-byte pieces (pts = piece
+    index), after each push decode() until it asks for input and take
+    the pictures that come out; then flush and decode to the end.
+    Returns (pictures, decoder, host wall s, pictures out before the
+    flush)."""
+    from libde265_tpu_torch import api
+    t0 = time.perf_counter()
+    dec = api.new_decoder(device=device, parse=parse)
+    pics = []
+
+    def drain():
+        while True:
+            more = api.decode(dec)
+            while (p := api.get_next_picture(dec)) is not None:
+                pics.append(p)
+            if not more:
+                return
+    for i in range(0, len(data), chunk):
+        api.push_data(dec, data[i:i + chunk], pts=i // chunk)
+        drain()
+    early = len(pics)
+    api.flush_data(dec)
+    drain()
+    return pics, dec, time.perf_counter() - t0, early
+
+
+def check_push_python(counters, data, wall14, wall4, device="cuda"):
+    """Phase 18: the per-picture push decoder (parse="python") on the
+    card. Returns its launches on the main path."""
+    import numpy as np
+    import torch
+    from libde265_tpu_torch.device_stream import PictureStreamDecoder
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    from gen_torch_recovery_goldens import OUT as GOLDEN, build_stream, \
+        trace
+
+    # per picture: the host ms of prepare (checks, caps, packing; host
+    # clock) and the launch ms (CUDA events around launch: its uploads
+    # and launches on the card's clock, the host's enqueue gaps between
+    # them included; the device may still run after it)
+    data = first_pictures(data, PUSH_PYTHON_FRAMES)
+    prep_ms, events = [], []
+    orig = PictureStreamDecoder.prepare, PictureStreamDecoder.launch
+
+    def prepare(self, view):
+        t = time.perf_counter()
+        try:
+            return orig[0](self, view)
+        finally:
+            prep_ms.append(1e3 * (time.perf_counter() - t))
+
+    def launch(self, job):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        orig[1](self, job)
+        b.record()
+        events.append((a, b))
+    PictureStreamDecoder.prepare, PictureStreamDecoder.launch = \
+        prepare, launch
+    try:
+        chunk = 64 * 1024
+        torch.cuda.synchronize()
+        for f in counters:
+            f.launches = 0
+        pics, dec, wall, early = live_push(data, chunk, device, "python")
+        torch.cuda.synchronize()
+        ln = [f.launches for f in counters]
+        ms = [a.elapsed_time(b) for a, b in events]
+    finally:
+        PictureStreamDecoder.prepare, PictureStreamDecoder.launch = orig
+    want = manifest_md5s(STREAM, "manifest_big.json")[:PUSH_PYTHON_FRAMES]
+    want_pts = expected_pts(data, chunk)
+    if len(pics) != len(want):
+        fail(f"parse=python {STREAM}: {len(pics)} pictures, want "
+             f"{len(want)}")
+    for i, pic in enumerate(pics):
+        if [pic.plane_md5(c) for c in range(3)] != want[i]:
+            fail(f"parse=python {STREAM} frame {i} (poc {pic.poc}): MD5 "
+                 f"differs")
+        if pic.pts != want_pts[pic.plan.frame_id]:
+            fail(f"parse=python {STREAM} frame {i}: pts {pic.pts}, want "
+                 f"{want_pts[pic.plan.frame_id]}")
+    st, ws = dec.stats, warnings_of(dec)
+    n = len(pics)
+    log(f"parse=python {STREAM} (its first {n} pictures): {n} frames "
+        f"MD5-equal to manifest_big.json with their pts, {early} out "
+        f"before the flush "
+        f"({len(data)} bytes in pushes of {chunk}); Python parse "
+        f"{st['parse_s']:.3f} s; host prepare ms a picture IDR "
+        f"{prep_ms[0]:.3f}, P min {min(prep_ms[1:]):.3f} / median "
+        f"{float(np.median(prep_ms[1:])):.3f} / max {max(prep_ms[1:]):.3f}; "
+        f"launch ms a picture (CUDA events around launch, enqueue gaps "
+        f"included) IDR {ms[0]:.3f}, P min {min(ms[1:]):.3f} / "
+        f"median {float(np.median(ms[1:])):.3f} / max {max(ms[1:]):.3f}; "
+        f"n_host_frames {st['n_host_frames']}, n_hybrid_frames "
+        f"{st['n_hybrid_frames']}, n_concealed_frames "
+        f"{st['n_concealed_frames']}; warnings {ws}; launches K1 {ln[0]}, "
+        f"K2 {ln[1]}, K3 {ln[2]}, K4 {ln[3]}, K5 {ln[4]}; wall {wall:.3f} "
+        f"s = {n / wall:.2f} fps (phase 14, the segment path: "
+        f"{wall14:.3f} s; phase 4, decode_stream_native: {wall4:.3f} s)")
+    if ln != [2 * n, 2 * (n - 1), 3 * n, 2, 0] or st["n_host_frames"] \
+            or st["n_hybrid_frames"] or st["n_concealed_frames"] or ws \
+            or not early:
+        fail(f"parse=python {STREAM}: launches {ln} (want K1 {2 * n}, K2 "
+             f"{2 * (n - 1)}, K3 {3 * n}, K4 2), host "
+             f"{st['n_host_frames']}, hybrid {st['n_hybrid_frames']}, "
+             f"concealed {st['n_concealed_frames']}, warnings {ws}, "
+             f"{early} pictures before the flush")
+
+    # the small vectors: MD5s, and phase 13's routes
+    t0 = time.perf_counter()
+    tot, parse_s, nfr = [0, 0], 0.0, 0
+    for name, manifest in small_vectors().items():
+        with open(os.path.join(DATA, name + ".bin"), "rb") as f:
+            sdata = f.read()
+        spics, sdec, _, _ = live_push(sdata, 997, device, "python")
+        want = manifest_md5s(name, manifest)
+        got = [[p.plane_md5(c) for c in range(len(w))]
+               for p, w in zip(spics, want)]
+        if len(spics) != len(want) or got != want:
+            fail(f"parse=python {name}: {len(spics)} pictures, MD5s "
+                 f"differ from {manifest}")
+        s_ = sdec.stats
+        route = (s_["n_hybrid_frames"], s_["n_host_frames"])
+        want_route = (len(want), 0) if name == SCALING_HYBRID else \
+            REFUSED.get(name, (None, 0, 0))[1:]
+        if route != want_route or s_["n_concealed_frames"] \
+                or warnings_of(sdec):
+            fail(f"parse=python {name}: hybrid / host frames {route}, want "
+                 f"{want_route}; {s_['n_concealed_frames']} concealed")
+        tot[0] += route[0]
+        tot[1] += route[1]
+        parse_s += s_["parse_s"]
+        nfr += len(spics)
+    swall = time.perf_counter() - t0
+    log(f"parse=python: {len(small_vectors())} small vectors, {nfr} "
+        f"frames MD5-equal; {tot[0]} hybrid and {tot[1]} numpy host frames "
+        f"(phase 13's: 20 + 4 of {SCALING_HYBRID}, 21); Python parse "
+        f"{parse_s:.3f} s of {swall:.3f} s wall")
+    if tot != [24, 21]:
+        fail(f"parse=python small vectors routed {tot}, want [24, 21]")
+
+    # the recovery cases against the JAX decoder's goldens
+    from libde265_tpu_torch import api
+    with open(GOLDEN) as f:
+        gold = json.load(f)
+    for name, e in gold.items():
+        r = e["recipe"]
+        sdata = build_stream(r)
+        if hashlib.md5(sdata).hexdigest() != e["bytes_md5"]:
+            fail(f"recovery {name}: the rebuilt stream differs")
+        got, sdec = trace(api, sdata, r["chunk"], r.get("dpb_size"),
+                          device=device, parse="python")
+        if json.loads(json.dumps(got)) != e["jax"]:
+            fail(f"recovery {name} (parse=python): differs from the JAX "
+                 f"decoder's golden: {got['warnings']} / "
+                 f"{e['jax']['warnings']}")
+        line = (f"recovery {name}: {len(got['pictures'])} pictures, "
+                f"warnings {got['warnings']}, statuses "
+                f"{sorted({s for s, _ in got['steps']})} as the JAX "
+                f"decoder's; host {sdec.stats['n_host_frames']}, concealed "
+                f"{sdec.stats['n_concealed_frames']}")
+        if r["native"]:
+            nat, ndec = trace(api, sdata, r["chunk"], device=device)
+            if any(json.loads(json.dumps(nat[k])) != e["jax"][k]
+                   for k in ("pictures", "warnings", "hash_checks")) \
+                    or ndec.stats["n_python_segments"] != 1:
+                fail(f"recovery {name} (default path): differs from the "
+                     f"golden, or {ndec.stats['n_python_segments']} "
+                     f"python segments")
+            line += "; the default path hands its segment over, the same"
+        log(line)
+
+    # the fuzz file with a 25-bit luma SPS: both push decoders refuse the
+    # SPS (SPS_HEADER_INVALID) on the card as on the CPU, and carry on
+    from libde265_tpu_torch.errors import Warning as W
+    with open(os.path.join(DATA, DEEP_SPS + ".bin"), "rb") as f:
+        sdata = f.read()
+    recs = {}
+    for dev, parse in ((device, "python"), (device, "native"),
+                       ("cpu", "python")):
+        got, sdec = trace(api, sdata, 997, device=dev, parse=parse)
+        recs[dev, parse] = {k: json.loads(json.dumps(got[k]))
+                            for k in ("pictures", "warnings", "hash_checks")}
+    ref = recs["cpu", "python"]
+    if any(r != ref for r in recs.values()) \
+            or ref["warnings"][:1] != [int(W.SPS_HEADER_INVALID)]:
+        fail(f"{DEEP_SPS}: {recs}")
+    log(f"{DEEP_SPS}: the 25-bit SPS refused by both push decoders, "
+        f"{len(ref['pictures'])} pictures, warnings {ref['warnings']} "
+        f"(the CPU's)")
+    return ln
+
+
 def main():
     try:
         import torch
@@ -1647,6 +1914,7 @@ def main():
         return pics, st, launches, wall
 
     pics, st, launches, wall = decode(STREAM, data, "manifest_big.json")
+    wall4 = wall                   # later phases reuse the name
     log(f"decode: {len(pics)} frames {pics[0].width}x{pics[0].height} "
         f"MD5-equal to manifest_big.json; n_host_frames "
         f"{st['n_host_frames']}")
@@ -1955,11 +2223,11 @@ def main():
         f"manifest_big.json, each with the pts of the push that completed "
         f"its first slice ({len(data)} bytes in {-(-len(data) // chunk)} "
         f"pushes of {chunk}); {pst['n_segments']} segment(s), "
-        f"n_host_frames {pst['n_host_frames']}, n_hybrid_frames "
+        f"n_python_segments {pst['n_python_segments']}, n_host_frames {pst['n_host_frames']}, n_hybrid_frames "
         f"{pst['n_hybrid_frames']}; launches K1 {pln[0]}, K2 {pln[1]}, K3 "
         f"{pln[2]}, K4 {pln[3]}; wall {pwall:.3f} s = "
         f"{len(ppics) / pwall:.2f} fps (phase 4, decode_stream_native: "
-        f"{wall:.3f} s = {nfr / wall:.2f} fps)")
+        f"{wall4:.3f} s = {nfr / wall4:.2f} fps)")
     if pst["n_host_frames"] or pln[:4] != [66, 64, 99, 2]:
         fail(f"push API {STREAM}: {pst['n_host_frames']} host frames, "
              f"launches {pln[:4]}; want 0 and K1 66, K2 64, K3 99, K4 2")
@@ -2130,6 +2398,12 @@ def main():
             f"equal to the CPU run (checksum {csum}); {ms:.4f} ms a step "
             f"(CUDA events)")
 
+    # ---- 18: the per-picture push decoder (parse="python"), counters
+    # zeroed just before its main path
+    del tpics
+    torch.cuda.empty_cache()
+    ln18 = check_push_python(counters, data, pwall, wall4)
+
     ms_i, ms_p = frame_times(dev, plans)
     log(f"frame program (CUDA events): 4K IDR {ms_i:.3f} ms, 4K P frame "
         f"{ms_p:.3f} ms")
@@ -2199,6 +2473,19 @@ def main():
         row(f"K3 SAO, hybrid path ({S422_CQO} P frame luma plane)",
             "sao_filter.cu", "libde265_tpu/ops/pallas/sao_filter.py:87",
             ln13[2], k3y, k3y[0]),
+        row("K1 tile-table update, per-picture push path (4K luma slot)",
+            "mc_tables.cu", "libde265_tpu/ops/pallas/mc_tables.py:263",
+            ln18[0], k1, k1[0]),
+        row("K2 MC, per-picture push path (4K P frame luma)",
+            "mc_filter.cu", "libde265_tpu/ops/pallas/mc_filter.py:67",
+            ln18[1], k2, k2[0]),
+        row("K3 SAO, per-picture push path (4K P frame luma plane)",
+            "sao_filter.cu", "libde265_tpu/ops/pallas/sao_filter.py:87",
+            ln18[2], k3, k3[0]),
+        row("K4 intra scan, per-picture push path (4K IDR luma, whole "
+            "frame)", "intra_scan.cu",
+            "libde265_tpu/ops/pallas/intra_scan.py:502", ln18[3], k4,
+            k4_4k[0]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi[0])

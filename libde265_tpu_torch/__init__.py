@@ -13,6 +13,7 @@ libde265_tpu.
     from libde265_tpu_torch import decode_stream_native, new_decoder
     pics = decode_stream_native(data)              # device="cuda"
     dec = new_decoder()                            # the push API
+    dec = new_decoder(parse="python")              # per picture
 
 The names below (those libde265_tpu/__init__.py exports) load at first
 use, so importing the package alone (as _build's users do) stays light.
@@ -22,13 +23,13 @@ __version__ = "0.1.0"
 _API = ("new_decoder", "push_data", "push_nal", "flush_data", "decode",
         "get_next_picture", "decode_stream", "decode_stream_native",
         "DecodedPicture")
-__all__ = ["Decoder", *_API]
+__all__ = ["Decoder", "PictureDecoder", *_API]
 
 
 def __getattr__(name):
-    if name == "Decoder":
-        from .decoder import Decoder
-        return Decoder
+    if name in ("Decoder", "PictureDecoder"):
+        from . import decoder
+        return getattr(decoder, name)
     if name in _API:
         from . import api
         return getattr(api, name)

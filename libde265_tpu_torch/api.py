@@ -8,9 +8,11 @@ conformance window applied.
 
 The push API, the de265_* C surface (libde265/de265.h:190-430) in
 pythonic form, as libde265_tpu/api.py:56-124 has it, over the port's
-decoder.Decoder (on "cuda" unless the caller asks for "cpu"):
+decoder.Decoder (parse="native", the default) or decoder.PictureDecoder
+(parse="python", the JAX decoder's own per-picture path), on "cuda"
+unless the caller asks for "cpu":
 
-    dec = new_decoder()
+    dec = new_decoder()           # or new_decoder(parse="python")
     push_data(dec, chunk, pts)
     flush_data(dec)
     while decode(dec): ...
@@ -28,7 +30,7 @@ import torch
 
 from .bitstream.nal import split_annexb
 from .bitstream.paramsets import read_sps, read_pps
-from .decoder import Decoder
+from .decoder import Decoder, PictureDecoder
 from .device import resolve
 from .device_stream import DeviceStreamDecoder, ShardedStreamDecoder
 from .native_frontend import NativeFrontend
@@ -237,9 +239,18 @@ def decode_stream_native(data: bytes, device="cuda", stats=None,
     return pics
 
 
-def new_decoder(**kw) -> Decoder:
-    """A push decoder (decoder.Decoder); device="cuda" unless given."""
-    return Decoder(**kw)
+def new_decoder(parse="native", **kw):
+    """A push decoder on `device` ("cuda" unless given). parse="native"
+    (decoder.Decoder): the slices parsed by the C++ front end a segment
+    (IDR or BLA to the next) at a time; parse="python"
+    (decoder.PictureDecoder): the JAX decoder's own path, every slice
+    parsed in Python and each picture reconstructed on the device when
+    it ends, output one picture at a time as the DPB bumps it."""
+    if parse == "native":
+        return Decoder(**kw)
+    if parse == "python":
+        return PictureDecoder(**kw)
+    raise ValueError(f"parse={parse!r}: 'native' or 'python'")
 
 
 def push_data(dec: Decoder, data: bytes, pts=None):
@@ -287,8 +298,8 @@ def release_next_picture(dec: Decoder):
 def decode_stream(data: bytes, stats=None, **kw):
     """Convenience: decode a whole Annex-B stream through the push API;
     returns the list of pictures. kw go to new_decoder (device="cuda"
-    unless given); stats, if a dict, gets the decoder's frame counts
-    (Decoder.stats)."""
+    and parse="native" unless given); stats, if a dict, gets the
+    decoder's counts (its .stats)."""
     dec = new_decoder(**kw)
     dec.push_data(data)
     dec.flush()

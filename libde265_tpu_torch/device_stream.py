@@ -19,8 +19,11 @@ decode_all_pipelined packs on a builder thread ahead of the device and
 uploads from page-locked buffers on a copy stream of its own.
 
 ShardedStreamDecoder is the tile-column variant: one tile column per
-entry of a device list (parallel/tile_shard.py).
+entry of a device list (parallel/tile_shard.py). PictureStreamDecoder is
+the per-picture variant, fed one plan at a time by the push decoder's
+Python front end (decoder.PictureDecoder) through bridge_plan.
 """
+import copy
 import queue
 import threading
 import time
@@ -39,8 +42,32 @@ from .packing import (REF_SLOTS, blob_meta, frame_compatible,
                       frame_has_intra, frame_has_mc, frame_uses_rext_tools,
                       pack_blob, pack_blob_native, pack_frame, stream_cfg)
 from .parallel.tile_shard import decode_frame_tiles, split_strips
-from .plan import grey_planes
+from .plan import (MODE_INTRA, PU_FID0, PU_H, PU_PF0, PU_W, PU_X, PU_Y,
+                   TU_CIDX, TU_IMODE, TU_LOG2, TU_PM, TU_X, TU_Y,
+                   grey_planes, pu_table, tu_table)
 from .reconstruct import reconstruct_frame
+
+# what host work raises on a corrupted plan (bridge_plan's checks, the
+# packers' asserts, table lookups)
+DATA_ERRORS = (ValueError, AssertionError, IndexError, KeyError)
+
+
+class HostDataError(ValueError):
+    """A data error of a frame's host work (stream_cfg, packing, the numpy
+    reference of a frame_uses_rext_tools frame), raised before that
+    frame's own launches. An error of a launch or of a kernel's wrapper
+    is never one: a caller may hand the stream to another path on this
+    error alone."""
+
+
+def _host(fn, *args):
+    """fn(*args) with its DATA_ERRORS raised as HostDataError."""
+    try:
+        return fn(*args)
+    except HostDataError:
+        raise
+    except DATA_ERRORS as e:
+        raise HostDataError(f"{fn.__name__}: {e!r}") from e
 
 
 class _HostRefShim:
@@ -72,7 +99,7 @@ class DeviceStreamDecoder:
     def __init__(self, plans, sps, device="cuda"):
         self.device = resolve(device)
         self.plans = plans
-        self.cfg = stream_cfg(plans, sps)
+        self.cfg = _host(stream_cfg, plans, sps)
         check_slice(self.cfg)
         H, W = self.cfg.H, self.cfg.W
         self.Hc, self.Wc = self.cfg.chroma_dims
@@ -85,19 +112,23 @@ class DeviceStreamDecoder:
         self.slot_fid = [None] * REF_SLOTS
         self.frames = {}               # fid -> {plan, host(np)|None, fast}
         self.last_use = self._last_uses(plans)
-        # program variants sharing one state: the scan cfg (no intra
-        # stage) for inter frames; the full cfg for intra-containing
-        # frames; a skip_mc flavour for zero-PU frames (I-frames)
-        self.cfg_scan = replace(self.cfg, intra=(), intra_C=0)
-        self._cfgs = {(False, True): self.cfg_scan}
-        if self.cfg.intra:
-            self._cfgs[(True, True)] = self.cfg
-            self._cfgs[(True, False)] = replace(self.cfg, skip_mc=True)
+        self._set_cfg(self.cfg)
         self.dtype = np.uint8 if self.cfg.bitdepth == 8 else np.uint16
         self.n_host_frames = 0         # frames reconstructed by numpy
         self.n_hybrid_frames = 0       # frames of the hybrid device path
         self.pack_seconds = 0.0        # host clock spent packing plans
         self.n_pipelined_frames = 0    # frames decode_all_pipelined ran
+
+    def _set_cfg(self, cfg):
+        """The program variants that share one state: the scan cfg (no
+        intra stage) for inter frames; the full cfg for intra-containing
+        frames; a skip_mc flavour for zero-PU frames (I-frames)."""
+        self.cfg = cfg
+        self.cfg_scan = replace(cfg, intra=(), intra_C=0)
+        self._cfgs = {(False, True): self.cfg_scan}
+        if cfg.intra:
+            self._cfgs[(True, True)] = cfg
+            self._cfgs[(True, False)] = replace(cfg, skip_mc=True)
 
     def state(self):
         return [self.dy, self.dcb, self.dcr, self.ty, self.tc]
@@ -200,7 +231,7 @@ class DeviceStreamDecoder:
             # (never a frame the program takes) the numpy reference
             # reconstructs every tool; the frame still lands in the
             # device DPB
-            planes = reconstruct_frame(plan, dpb_images=_HostRefShim(self))
+            planes = _host(reconstruct_frame, plan, _HostRefShim(self))
             self.n_host_frames += 1
             self.frames[fid] = {"plan": plan, "host": planes, "fast": False}
             s = self._alloc_slot(fid, frame_idx, needed)
@@ -222,7 +253,7 @@ class DeviceStreamDecoder:
 
     def _pack(self, plan, cfg, fid_slot):
         t0 = time.perf_counter()
-        t = pack_frame(plan, cfg, fid_slot)
+        t = _host(pack_frame, plan, cfg, fid_slot)
         self.pack_seconds += time.perf_counter() - t0
         return t
 
@@ -618,3 +649,206 @@ class ShardedStreamDecoder(DeviceStreamDecoder):
                       self.dcb[out_slot], self.dcr[out_slot], out_slot,
                       self.cfg)
         self.n_strip_frames += 1
+
+
+def bridge_plan(plan, frame_id, nal_type, output_flag, fid_of):
+    """A view of a plan that the Python front end parsed (bitstream/
+    ctu.py's SliceReader) in the native front end's layout: _tu_arrays /
+    _pu_arrays from tu_table / pu_table, with PU_FID0/1 the frame ids of
+    the references (fid_of: Python DPB index -> frame id; a list a PU
+    does not use keeps -1), and the fields the device decoder reads
+    (frame_id; nal_type, -1 for a grey stand-in; output_flag;
+    max_num_reorder). The view shares the plan's grids; the plan keeps
+    its TU / PU records, which the numpy reference reads. Raises
+    ValueError where a coefficient does not fit the int16 pool
+    (tu_table) or a value the device would index with lies outside the
+    picture (check_view)."""
+    v = copy.copy(plan)
+    v.frame_id, v.nal_type, v.output_flag = frame_id, nal_type, \
+        int(output_flag)
+    v.max_num_reorder = plan.sps.max_num_reorder_pics[-1]
+    if nal_type == -1:
+        v._tu_arrays = (np.zeros((0, 12), np.int32), np.zeros(1, np.int16),
+                        np.zeros(1, np.int16))
+        v._pu_arrays = (np.zeros((0, 17), np.int32), v.slice_headers)
+        return v
+    tm, cpool, ppool = tu_table(plan)
+    # a PCM row's intra mode is 0 in the native layout (-1 in the record)
+    tm[tm[:, TU_CIDX] == -1, TU_IMODE] = 0
+    v._tu_arrays = (tm, cpool, ppool)
+    pm = pu_table(plan).copy()
+    for l in range(2):
+        used = pm[:, PU_PF0 + l] > 0
+        pm[used, PU_FID0 + l] = [fid_of.get(int(i), -1)
+                                 for i in pm[used, PU_FID0 + l]]
+    v._pu_arrays = (pm, v.slice_headers)
+    check_view(v)
+    return v
+
+
+def check_view(v):
+    """ValueError unless every TU and PU of the bridged view lies inside
+    its plane, every TU is 4x4 to 32x32 of a known plane, every intra
+    mode is one of the 35 and every used reference has a frame id: the
+    values the device program indexes with (an index outside its tensor
+    is a device fault on the card, not an exception)."""
+    tm = v._tu_arrays[0]
+    sps = v.sps
+    if tm.shape[0]:
+        cidx, log2 = tm[:, TU_CIDX], tm[:, TU_LOG2]
+        if ((cidx < -1) | (cidx > (2 if sps.ChromaArrayType else 0))
+                | (log2 < 2) | (log2 > 5)).any():
+            raise ValueError("TU of an unknown plane or size")
+        n = 1 << log2
+        sub = np.where(cidx > 0, 1, 0)
+        W = np.where(sub, v.W // sps.SubWidthC, v.W)
+        H = np.where(sub, v.H // sps.SubHeightC, v.H)
+        if ((tm[:, TU_X] < 0) | (tm[:, TU_Y] < 0) | (tm[:, TU_X] + n > W)
+                | (tm[:, TU_Y] + n > H)).any():
+            raise ValueError("TU outside its plane")
+        intra = (tm[:, TU_PM] == MODE_INTRA) & (cidx >= 0)
+        im = tm[intra, TU_IMODE]
+        if ((im < 0) | (im > 34)).any():
+            raise ValueError("intra mode outside 0..34")
+    pm = v._pu_arrays[0]
+    if pm.shape[0]:
+        if ((pm[:, PU_X] < 0) | (pm[:, PU_Y] < 0) | (pm[:, PU_W] < 4)
+                | (pm[:, PU_H] < 4) | (pm[:, PU_X] + pm[:, PU_W] > v.W)
+                | (pm[:, PU_Y] + pm[:, PU_H] > v.H)).any():
+            raise ValueError("PU outside the picture")
+        for l in range(2):
+            if (pm[pm[:, PU_PF0 + l] > 0, PU_FID0 + l] < 0).any():
+                raise ValueError("PU references a DPB entry without a "
+                                 "picture")
+
+
+class PictureStreamDecoder(DeviceStreamDecoder):
+    """The device decoder fed one picture at a time, in decode order (the
+    push decoder's Python front end, decoder.PictureDecoder). The state
+    (DPB stacks, tile tables) is shaped by the SPS alone (size, bit depth,
+    chroma format); each frame runs with a ProgramCfg of its own caps
+    (stream_cfg over that frame), since no cap may come from a frame not
+    yet parsed. A picture is decoded in two steps: prepare does all its
+    host work (checks, caps, slot moves, packing) and may refuse it with a
+    DATA_ERRORS exception before anything reaches the device; launch then
+    runs the frame program or the hybrid path, and nothing it raises is a
+    refusal. A frame leaves the device DPB when the caller's DPB no
+    longer uses it (retain); while all REF_SLOTS hold live frames, the
+    one the frame being decoded does not reference, non-references first
+    and then the oldest, is evicted with a host copy kept."""
+
+    def __init__(self, sps, device="cuda"):
+        super().__init__([], sps, device)
+        self.geometry = stream_geometry(sps)
+        self.rank = {}                 # fid -> eviction order key
+
+    def retain(self, rank):
+        """Keep the frames of `rank` (fid -> eviction key: lower goes
+        first), drop every other frame with its slot."""
+        for fid in [f for f in self.frames if f not in rank]:
+            del self.frames[fid]
+            s = self.slot_of.pop(fid, None)
+            if s is not None:
+                self.slot_fid[s] = None
+        self.rank = rank
+
+    def _pick_slot(self, slot_fid, needed):
+        """The slot for the next frame: a free one, else the one whose
+        frame goes first (not in `needed`, then by rank)."""
+        free = [s for s, f in enumerate(slot_fid) if f is None]
+        if free:
+            return free[0]
+        s = min(range(REF_SLOTS), key=lambda s: (
+            slot_fid[s] in needed, self.rank.get(slot_fid[s], ())))
+        if slot_fid[s] in needed:
+            raise ValueError(f"a frame references more than {REF_SLOTS} "
+                             f"frames")
+        return s
+
+    def _alloc_slot(self, fid, frame_idx, needed):
+        s = self._pick_slot(self.slot_fid, needed)
+        vfid = self.slot_fid[s]
+        if vfid is not None:
+            self._host_planes(vfid)        # live: keep a host copy
+            del self.slot_of[vfid]
+        self.slot_of[fid] = s
+        self.slot_fid[s] = fid
+        return s
+
+    def prepare(self, view):
+        """The host work of one bridged coded picture (bridge_plan): its
+        checks, its ProgramCfg, the slot moves (each reference held only
+        on the host, then the frame itself: (frame id, slot, evicted
+        frame id or None)) and, for the frame program, its packed
+        tensors. Reads no device memory and launches nothing; a
+        DATA_ERRORS exception refuses the picture (the caller then
+        reconstructs it on the host and puts it in with insert_host).
+        Returns the job for launch."""
+        if stream_geometry(view.sps) != self.geometry:
+            raise ValueError("SPS geometry differs from the decoder's")
+        needed = self.ref_fids(view)
+        if any(f not in self.frames for f in needed):
+            raise KeyError(f"frame {view.frame_id} references a frame "
+                           f"the device DPB does not hold")
+        cfg = stream_cfg([view], view.sps)
+        try:
+            check_slice(cfg)
+        except NotImplementedError as e:
+            raise ValueError(str(e)) from e
+        self._set_cfg(cfg)
+        slot_of, slot_fid = dict(self.slot_of), list(self.slot_fid)
+        moves = []
+        for fid in [*(f for f in needed if f not in slot_of), view.frame_id]:
+            s = self._pick_slot(slot_fid, needed)
+            vfid = slot_fid[s]
+            if vfid is not None:
+                del slot_of[vfid]
+            slot_of[fid], slot_fid[s] = s, fid
+            moves.append((fid, s, vfid))
+        packed = None
+        if frame_compatible(view) and self._fast_ok(view):
+            key = (frame_has_intra(view), frame_has_mc(view))
+            pcfg = self._cfgs.get(key) or self._cfgs[(False, True)]
+            packed = (pcfg, self._pack(view, pcfg, slot_of))
+        return view, moves, packed
+
+    def launch(self, job):
+        """The device work of a prepared picture: the slot moves (a host
+        copy of each evicted frame, each host-held reference uploaded
+        with K1), then the frame program (K1-K4) or the hybrid path into
+        the frame's slot. What it raises is an error, never a
+        refusal."""
+        view, moves, packed = job
+        for fid, s, vfid in moves:
+            if vfid is not None:
+                self._host_planes(vfid)
+                del self.slot_of[vfid]
+            self.slot_of[fid], self.slot_fid[s] = s, fid
+            if fid != view.frame_id:
+                self._do_insert(self.frames[fid]["host"], s)
+        out_slot = moves[-1][1]
+        if packed is not None:
+            cfg, t = packed
+            decode_frame_device(*self.state(),
+                                plan_from_numpy(t, self.device), out_slot,
+                                cfg)
+        else:
+            reconstruct_frame_device(view, self, out_slot)
+            self.n_hybrid_frames += 1
+        self.frames[view.frame_id] = {"plan": view, "host": None,
+                                      "fast": packed is not None}
+
+    def insert_host(self, view, planes):
+        """Host planes (the numpy reference's, or grey concealment) as
+        the frame `view`."""
+        self.frames[view.frame_id] = {"plan": view, "host": planes,
+                                      "fast": False}
+        s = self._alloc_slot(view.frame_id, 0, self.ref_fids(view))
+        self._do_insert(planes, s)
+
+
+def stream_geometry(sps):
+    """What shapes PictureStreamDecoder's state: size, bit depths,
+    chroma format."""
+    return (sps.pic_width_in_luma_samples, sps.pic_height_in_luma_samples,
+            sps.BitDepthY, sps.BitDepthC, sps.ChromaArrayType)

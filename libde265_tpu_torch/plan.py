@@ -244,7 +244,9 @@ def tu_table(plan):
     (cidx -1) of its n*n luma and then its two chroma blocks in the PCM
     pool. The native front end's arrays where the plan still holds them,
     else rebuilt from the TURecords (the host work of the hybrid device
-    path reads this table instead of looping over TURecords)."""
+    path reads this table instead of looping over TURecords); ValueError
+    where a record's value does not fit the int16 pools (a corrupted
+    stream's)."""
     if plan._tu_arrays is not None:
         return plan._tu_arrays
     rows, cpool, ppool = [], [], []
@@ -265,8 +267,12 @@ def tu_table(plan):
                      coff, tu.cross_comp_alpha, tu.explicit_rdpcm))
 
     def pool(parts):
-        return np.concatenate(parts).astype(np.int16) if parts \
-            else np.zeros(1, np.int16)
+        if not parts:
+            return np.zeros(1, np.int16)
+        p = np.concatenate(parts)
+        if p.min() < -32768 or p.max() > 32767:
+            raise ValueError("a coefficient or sample outside int16")
+        return p.astype(np.int16)
     meta = np.asarray(rows, np.int32).reshape(len(rows), 12)
     return meta, pool(cpool), pool(ppool)
 

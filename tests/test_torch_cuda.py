@@ -800,3 +800,87 @@ def test_port_encoded_stream_on_card(cuda, settings):
     for pic, rec in zip(pics, recon):
         for p, r in zip(pic.planes, rec):
             assert np.array_equal(np.asarray(p), r)
+
+
+# the per-picture push path (parse="python") on the card: vector ->
+# (manifest, hybrid frames, numpy host frames)
+PUSH_PYTHON = {"p_mixed": ("manifest_inter.json", 0, 0),
+               "b_mixed": ("manifest_inter.json", 0, 0),
+               "p_cra": ("manifest_inter.json", 0, 0),
+               "p_10bit": ("manifest_inter.json", 0, 0),
+               "rext_422_104x72": ("manifest_rext.json", 0, 0),
+               "rxt_cqo": ("manifest_rext_tools.json", 4, 0),
+               "rxt_ccp_444": ("manifest_rext_tools.json", 0, 4)}
+
+
+def _trace_tools():
+    import sys
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..",
+                                    "tools"))
+    import gen_torch_recovery_goldens
+    return gen_torch_recovery_goldens
+
+
+@pytest.mark.parametrize("name", sorted(PUSH_PYTHON))
+def test_push_python_on_card(cuda, name):
+    """new_decoder(device="cuda", parse="python") in 997-byte pushes:
+    every picture MD5-equal to the manifest, the frames routed as the
+    segment path routes them, none concealed, no warning; and the same
+    record (pictures, pts, warnings, statuses) as on the CPU."""
+    from libde265_tpu_torch import api
+    g = _trace_tools()
+    manifest, nhyb, nhost = PUSH_PYTHON[name]
+    with open(os.path.join(DATA, name + ".bin"), "rb") as f:
+        data = f.read()
+    rec, dec = g.trace(api, data, 997, device="cuda", parse="python")
+    with open(os.path.join(DATA, manifest)) as f:
+        m = json.load(f)[name]
+    assert [p[1] for p in rec["pictures"]] == \
+        [[f[k] for k in ("y", "u", "v")] for f in m["md5"]]
+    st = dec.stats
+    assert (st["n_hybrid_frames"], st["n_host_frames"],
+            st["n_concealed_frames"]) == (nhyb, nhost, 0)
+    assert not rec["warnings"]
+    cpu, _ = g.trace(api, data, 997, device="cpu", parse="python")
+    assert rec == cpu
+
+
+def _recovery_cases():
+    with open(os.path.join(DATA, "manifest_torch_recovery.json")) as f:
+        return json.load(f)
+
+
+@pytest.mark.parametrize("name", sorted(_recovery_cases()))
+def test_recovery_goldens_on_card(cuda, name):
+    """The recovery cases on the card equal the JAX decoder's goldens
+    (tools/gen_torch_recovery_goldens.py); the fuzzed p_slices2 streams
+    also through the default path's hand-off."""
+    from libde265_tpu_torch import api
+    g = _trace_tools()
+    e = _recovery_cases()[name]
+    r = e["recipe"]
+    data = g.build_stream(r)
+    rec, _ = g.trace(api, data, r["chunk"], r.get("dpb_size"),
+                     device="cuda", parse="python")
+    assert json.loads(json.dumps(rec)) == e["jax"]
+    if r["native"]:
+        nat, dec = g.trace(api, data, r["chunk"], device="cuda")
+        for k in ("pictures", "warnings", "hash_checks"):
+            assert json.loads(json.dumps(nat[k])) == e["jax"][k], k
+        assert dec.stats["n_python_segments"] == 1
+
+
+@pytest.mark.parametrize("parse", ["python", "native"])
+def test_sps_bit_depth_above_16_refused_on_card(cuda, parse):
+    """The fuzz file with a 25-bit luma SPS on the card: the SPS refused
+    (SPS_HEADER_INVALID first), the same record as on the CPU."""
+    from libde265_tpu_torch import api
+    from libde265_tpu_torch.errors import Warning as W
+    g = _trace_tools()
+    with open(os.path.join(DATA, "id_009_intra_104x72_q26_flip2.bin"),
+              "rb") as f:
+        data = f.read()
+    rec, _ = g.trace(api, data, 997, device="cuda", parse=parse)
+    cpu, _ = g.trace(api, data, 997, device="cpu", parse=parse)
+    assert rec == cpu
+    assert rec["warnings"][:1] == [int(W.SPS_HEADER_INVALID)]

@@ -163,7 +163,9 @@ def test_port_runs_without_jax():
     device path, one at 10 bits, one through the pipelined decoder, one
     through the tile-column decoder, one through the GOP decoder (and
     decode_gop_parallel) and one through the push API with its SEI hash
-    checks; then encoding a small stream with the port's encoder (hash
+    checks, and once more through the per-picture path (parse="python",
+    bitstream.ctu.SliceReader); then encoding a small stream with the
+    port's encoder (hash
     SEI on), decoding it through the push API with every hash checked,
     scoring it with utils.quality and running parallel.tile_mesh's step,
     leaves jax and the JAX package (libde265_tpu) out of sys.modules."""
@@ -223,6 +225,19 @@ def test_port_runs_without_jax():
         "while api.get_next_picture(dec) is not None:\n"
         "    n += 1\n"
         "assert (n, dec.hash_checks_passed) == (3, 3), n\n"
+        "assert api.get_warning(dec) is None\n"
+        "from libde265_tpu_torch.bitstream.ctu import SliceReader\n"
+        "dec = api.new_decoder(device='cpu', parse='python')\n"
+        "for i in range(0, len(data), 500):\n"
+        "    api.push_data(dec, data[i:i + 500], pts=i)\n"
+        "api.flush_data(dec)\n"
+        "n, more = 0, True\n"
+        "while more:\n"
+        "    more = api.decode(dec)\n"
+        "    while api.get_next_picture(dec) is not None:\n"
+        "        n += 1\n"
+        "assert (n, dec.hash_checks_passed) == (3, 3), n\n"
+        "assert dec.stats['n_frames'] == 3 and dec.stats['parse_s'] > 0\n"
         "assert api.get_warning(dec) is None\n"
         "enc = {'encoder', 'encoder.rdo', 'dpb', 'motion', 'utils.quality',\n"
         "       'utils.visualize', 'utils.configparam', 'parallel.tile_mesh',\n"
