@@ -197,7 +197,26 @@ card.
    card and the per-picture one on the CPU, the SPS refused, the same
    pictures and warnings. Phases 14 and 17 fail if the default push
    decoder hands a segment of their clean streams to the per-picture
-   path (stats n_python_segments).
+   path (stats n_python_segments);
+19. the command-line tools (libde265_tpu_torch/tools/), each through its
+   main(argv) in this process on "cuda" (port_tool), held to the
+   manifest MD5s and to tests/data/manifest_torch_tools.json (the JAX
+   tools' output, tools/gen_torch_tools_goldens.py): dec265 -o on
+   ld4k_light with the counters zeroed just before (every frame
+   MD5-equal to manifest_big.json, K1 66 / K2 64 / K3 99 / K4 2, its
+   wall beside phase 4's); dec265 -c on the 16 vectors with hash SEI (no
+   mismatch); -T 0 and -F 50 on p_temporal; --disable-deblocking,
+   --disable-sao and both on seven vectors across the routes (frame
+   program at 8 and 10 bits and 4:2:2, hybrid, numpy, numpy beside the
+   device), every frame the JAX tool's, no K3 launch with SAO off, the
+   card used; the sweep over tests/data (4 spawned workers on this
+   card): no failure, and OK exactly where the JAX sweep was, plus
+   SWEEP_BETTER; acceleration_speed --check --time (its lines, its CUDA
+   event ms logged); sherlock on p_cif_mixed -n 2 (every layer's pixels,
+   decoded with zlib, and the metadata); hdrcopy's stdout and copy on
+   p_temporal; enc265's bytes, rd_curves' points (decoded on the card)
+   and bjontegaard's lines on a seeded 128x96 8-frame YUV
+   (tools_yuv); the phase's wall.
 
 Any failure exits non-zero. The last stdout line is the JSON
 {"ok": true, "device": {...}}; the line before it is the card's name and
@@ -208,8 +227,9 @@ for K1 and K5, the library yardstick's time; the rows of step 10 carry
 the launches of the Main 10 decode, those of step 12 the launches of the
 4:2:2 decode (K3, K4) or of the small vectors of that format (the 4:4:4
 and monochrome K4 rows), the row of step 13 the K3 launches of the
-hybrid 4K decode, the last four rows the launches of step 18's
-ld4k_light decode beside the times of step 3.
+hybrid 4K decode, the last eight rows the launches of step 18's
+ld4k_light decode and of step 19's dec265 run on it, beside the times
+of step 3.
 
     python3 chip_smoke.py
 """
@@ -1828,6 +1848,247 @@ def check_push_python(counters, data, wall14, wall4, device="cuda"):
     return ln
 
 
+def port_tool(name, argv):
+    """(exit code, stdout, wall s) of libde265_tpu_torch.tools.<name>
+    .main(argv) in this process; the environment (the kill-switches a
+    tool sets) is restored after it. Whatever the tool raises leaves
+    this script."""
+    import contextlib
+    import importlib
+    import io
+    mod = importlib.import_module(f"libde265_tpu_torch.tools.{name}")
+    env = dict(os.environ)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = mod.main(list(argv))
+    finally:
+        os.environ.clear()
+        os.environ.update(env)
+    return rc, buf.getvalue(), time.perf_counter() - t0
+
+
+def check_tools(counters, wall4):
+    """Phase 19: the command-line tools (libde265_tpu_torch/tools/), each
+    through its main(argv) on "cuda", held to the dec265 MD5s and to
+    tests/data/manifest_torch_tools.json (the JAX tools' output, from
+    tools/gen_torch_tools_goldens.py). Returns dec265's launches on the
+    main path."""
+    import tempfile
+    import torch
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    from gen_torch_tools_goldens import (
+        OUT as GOLDEN, SWEEP_BETTER, SWITCHES, TEMPORAL, filter0_pixels,
+        frame_md5s, html_images, n_frames, pixel_md5, tools_yuv)
+    with open(GOLDEN) as f:
+        gold = json.load(f)
+    tp = time.perf_counter()
+    tmpdir = tempfile.TemporaryDirectory()
+    tmp = tmpdir.name
+    dev = ["--device", "cuda"]
+
+    def stream(name):
+        return os.path.join(DATA, name + ".bin")
+
+    def zero():
+        torch.cuda.synchronize()
+        for f in counters:
+            f.launches = 0
+
+    def dec265(name, argv):
+        """(per-frame MD5s of dec265's -o output, launches, wall)."""
+        out = os.path.join(tmp, "out.yuv")
+        zero()
+        rc, so, wall = port_tool("dec265", [*argv, *dev, "-o", out,
+                                            stream(name)])
+        torch.cuda.synchronize()
+        ln = [f.launches for f in counters]
+        if rc != 0:
+            fail(f"dec265 {argv} {name}: exit {rc}: {so}")
+        with open(out, "rb") as f:
+            yuv = f.read()
+        os.remove(out)
+        return frame_md5s(yuv, n_frames(so)), ln, wall, so
+
+    # ---- the main path: dec265 -o on the 4K stream, counters zeroed
+    out = os.path.join(tmp, "ld4k.yuv")
+    zero()
+    rc, so, wall = port_tool("dec265", [*dev, "-o", out, stream(STREAM)])
+    torch.cuda.synchronize()
+    ln = [f.launches for f in counters]
+    if rc != 0:
+        fail(f"dec265 {STREAM}: exit {rc}")
+    want = manifest_md5s(STREAM, "manifest_big.json")
+    with open(os.path.join(DATA, "manifest_big.json")) as f:
+        big = json.load(f)[STREAM]
+    H, W = big["h"], big["w"]
+    with open(out, "rb") as f:
+        for i, w in enumerate(want):
+            frame = f.read(H * W * 3 // 2)
+            got = [hashlib.md5(p).hexdigest() for p in (
+                frame[:H * W], frame[H * W:H * W * 5 // 4],
+                frame[H * W * 5 // 4:])]
+            if got != w:
+                fail(f"dec265 {STREAM} frame {i}: MD5 differs")
+        if f.read(1):
+            fail(f"dec265 {STREAM}: more frames than the manifest")
+    os.remove(out)
+    n = len(want)
+    log(f"dec265 -o {STREAM}: {n} frames MD5-equal to manifest_big.json; "
+        f"its line: {so.strip()}; wall {wall:.3f} s = {n / wall:.2f} fps "
+        f"with the YUV written (phase 4, decode_stream_native: {wall4:.3f} "
+        f"s); launches K1 {ln[0]}, K2 {ln[1]}, K3 {ln[2]}, K4 {ln[3]}, K5 "
+        f"{ln[4]}")
+    if ln != [2 * n, 2 * (n - 1), 3 * n, 2, 0]:
+        fail(f"dec265 {STREAM}: launches {ln}, want K1 {2 * n}, K2 "
+             f"{2 * (n - 1)}, K3 {3 * n}, K4 2")
+
+    # ---- -c on every vector with hash SEI (the segment push decoder)
+    t0 = time.perf_counter()
+    for name in gold["hash_sei"]:
+        zero()
+        rc, so, _ = port_tool("dec265", ["-c", *dev, stream(name)])
+        if rc != 0 or "MISMATCH" in so:
+            fail(f"dec265 -c {name}: exit {rc}: {so}")
+    log(f"dec265 -c: {len(gold['hash_sei'])} vectors with hash SEI, no "
+        f"mismatch ({time.perf_counter() - t0:.3f} s)")
+
+    # ---- -T / -F (the per-picture push decoder)
+    for name, cases in gold["temporal"].items():
+        for k, want in cases.items():
+            argv = TEMPORAL[1][k]
+            got, _, _, _ = dec265(name, argv)
+            if got != want:
+                fail(f"dec265 {argv} {name}: frames differ from the JAX "
+                     f"tool's")
+    log(f"dec265 -T / -F on {', '.join(gold['temporal'])}: equal to the JAX "
+        f"tool's")
+
+    # ---- the kill-switches on vectors that span the routes
+    t0 = time.perf_counter()
+    for name, by in gold["killswitch"].items():
+        for k, want in by.items():
+            got, kl, _, _ = dec265(name, SWITCHES[k])
+            if got != want:
+                fail(f"dec265 {' '.join(SWITCHES[k])} {name}: frames "
+                     f"differ from the JAX tool's")
+            if k != "deblock" and kl[2]:
+                fail(f"dec265 {' '.join(SWITCHES[k])} {name}: K3 launched "
+                     f"{kl[2]} times")
+            if name != "rxt_ccp_444" and not kl[0]:
+                fail(f"dec265 {' '.join(SWITCHES[k])} {name}: no frame on "
+                     f"the card")
+    log(f"dec265 --disable-deblocking / --disable-sao / both: "
+        f"{len(gold['killswitch'])} vectors ({', '.join(gold['killswitch'])})"
+        f" equal to the JAX tool's, no K3 launch with SAO off "
+        f"({time.perf_counter() - t0:.3f} s)")
+
+    # ---- the sweep over tests/data: every stream the JAX tool decoded
+    # decodes, and only SWEEP_BETTER beside them
+    rc, so, wall = port_tool("decodestreams", [DATA, *dev])
+    named = dict(ln_.split(": ", 1) for ln_ in so.splitlines()
+                 if ": " in ln_)
+    ds = gold["decodestreams"]
+    ok = {k for k, v in named.items() if v == "OK"}
+    want_ok = (set(named) - set(ds["not_ok"])) | set(SWEEP_BETTER)
+    summary = so.strip().splitlines()[-1]
+    log(f"decodestreams {DATA}: {summary}, {len(ok)} OK and "
+        f"{sum(v.startswith('FUZZ') for v in named.values())} fuzzed files "
+        f"failed as allowed (the JAX tool's: {ds['summary']}, {ds['ok']} "
+        f"OK; here also {', '.join(SWEEP_BETTER)}); wall {wall:.3f} s, "
+        f"4 spawned workers on this card")
+    if rc != 0 or summary != ds["summary"] or ok != want_ok:
+        fail(f"decodestreams: exit {rc}, {summary}; OK here only "
+             f"{sorted(ok - want_ok)}, not OK here {sorted(want_ok - ok)}: "
+             f"{[named.get(k) for k in sorted(want_ok - ok)][:5]}")
+
+    # ---- acceleration_speed --check --time
+    rc, so, wall = port_tool("acceleration_speed", ["--check", "--time",
+                                                    *dev])
+    lines = so.splitlines()
+    want = [f"transform {n}x{n}: OK" for n in (4, 8, 16, 32)] + \
+        [f"mc_luma {n}x{n}: OK" for n in (8, 16, 32, 64)] + \
+        ["all kernels verified against scalar reference"]
+    if rc != 0 or [ln_ for ln_ in lines if not ln_.startswith("  ")] \
+            != want:
+        fail(f"acceleration_speed: exit {rc}: {so}")
+    log("acceleration_speed --check --time: every check OK; "
+        + "; ".join(ln_.strip() for ln_ in lines if ln_.startswith("  ")))
+
+    # ---- sherlock
+    sg = gold["sherlock"]
+    html = os.path.join(tmp, "sherlock.html")
+    rc, so, _ = port_tool("sherlock", [stream(sg["stream"]), "-o", html,
+                                       "-n", str(sg["frames"]), *dev])
+    with open(html) as f:
+        imgs, meta = html_images(f.read())
+    # the PNGs decoded with zlib (the card's machine has no imaging
+    # library)
+    got = [{k: pixel_md5(filter0_pixels(v)) for k, v in d.items()}
+           for d in imgs]
+    if rc != 0 or meta != sg["meta"] or got != sg["pixels"]:
+        fail(f"sherlock {sg['stream']}: exit {rc}, pixels or metadata "
+             f"differ from the JAX tool's")
+    log(f"sherlock {sg['stream']} -n {sg['frames']}: every layer's pixels "
+        f"(decoded with zlib) and the metadata equal the JAX tool's")
+
+    # ---- hdrcopy
+    hg = gold["hdrcopy"]
+    cp = os.path.join(tmp, "ps.bin")
+    rc, so, _ = port_tool("hdrcopy", [stream(hg["stream"]), "--slices",
+                                      "--copy", cp])
+    with open(cp, "rb") as f:
+        copied = f.read()
+    if rc != 0 or hashlib.md5(so.replace(cp, "OUT").encode()).hexdigest() \
+            != hg["stdout_md5"] or hashlib.md5(copied).hexdigest() \
+            != hg["copy_md5"]:
+        fail(f"hdrcopy {hg['stream']}: differs from the JAX tool's")
+
+    # ---- enc265, rd_curves (decoded on the card), bjontegaard on the
+    # seeded YUV
+    sd = gold["seeded"]
+    yuv = os.path.join(tmp, "in.yuv")
+    with open(yuv, "wb") as f:
+        f.write(tools_yuv(sd["seed"], sd["w"], sd["h"], sd["frames"]))
+    geo = ["-w", str(sd["w"]), "-h", str(sd["h"])]
+    enc = os.path.join(tmp, "enc.bin")
+    rc, so, ewall = port_tool("enc265", ["-i", yuv, "-o", enc, *geo, "-f",
+                                         str(sd["frames"]),
+                                         *sd["enc265"]["args"]])
+    with open(enc, "rb") as f:
+        if rc != 0 or so != sd["enc265"]["stdout"] or \
+                hashlib.md5(f.read()).hexdigest() != sd["enc265"]["md5"]:
+            fail("enc265: bytes or line differ from the JAX tool's")
+    paths = []
+    zero()
+    for k in ("a", "b"):
+        path = os.path.join(tmp, f"curve_{k}.json")
+        rc, so, _ = port_tool("rd_curves", [
+            "-i", yuv, *geo, "-f", str(sd["rd_curves"][k]["frames"]),
+            "--qps", sd["rd_curves"]["qps"], "-o", path, *dev])
+        with open(path) as f:
+            if rc != 0 or json.load(f) != sd["rd_curves"][k]["points"]:
+                fail(f"rd_curves {k}: points differ from the JAX tool's")
+        paths.append(path)
+    torch.cuda.synchronize()
+    rl = [f.launches for f in counters]
+    rc, so, _ = port_tool("bjontegaard", paths)
+    if rc != 0 or so != sd["bjontegaard"]:
+        fail(f"bjontegaard: {so!r} != {sd['bjontegaard']!r}")
+    if not rl[0] or not rl[3]:
+        fail(f"rd_curves: launches {rl}: its decodes did not run on the "
+             f"card")
+    log(f"hdrcopy {hg['stream']}, enc265 ({ewall:.3f} s), rd_curves "
+        f"(launches K1 {rl[0]}, K2 {rl[1]}, K3 {rl[2]}, K4 {rl[3]}) and "
+        f"bjontegaard ({so.strip()!r}) on the seeded {sd['w']}x{sd['h']} "
+        f"{sd['frames']}-frame YUV: equal to the JAX tools'")
+    tmpdir.cleanup()
+    log(f"phase 19 (the command-line tools): {time.perf_counter() - tp:.3f}"
+        f" s")
+    return ln
+
+
 def main():
     try:
         import torch
@@ -2404,6 +2665,11 @@ def main():
     torch.cuda.empty_cache()
     ln18 = check_push_python(counters, data, pwall, wall4)
 
+    # ---- 19: the command-line tools, counters zeroed just before
+    # dec265's run on the main path
+    torch.cuda.empty_cache()
+    ln19 = check_tools(counters, wall4)
+
     ms_i, ms_p = frame_times(dev, plans)
     log(f"frame program (CUDA events): 4K IDR {ms_i:.3f} ms, 4K P frame "
         f"{ms_p:.3f} ms")
@@ -2486,6 +2752,18 @@ def main():
             "frame)", "intra_scan.cu",
             "libde265_tpu/ops/pallas/intra_scan.py:502", ln18[3], k4,
             k4_4k[0]),
+        row("K1 tile-table update, dec265 CLI (4K luma slot)",
+            "mc_tables.cu", "libde265_tpu/ops/pallas/mc_tables.py:263",
+            ln19[0], k1, k1[0]),
+        row("K2 MC, dec265 CLI (4K P frame luma)",
+            "mc_filter.cu", "libde265_tpu/ops/pallas/mc_filter.py:67",
+            ln19[1], k2, k2[0]),
+        row("K3 SAO, dec265 CLI (4K P frame luma plane)",
+            "sao_filter.cu", "libde265_tpu/ops/pallas/sao_filter.py:87",
+            ln19[2], k3, k3[0]),
+        row("K4 intra scan, dec265 CLI (4K IDR luma, whole frame)",
+            "intra_scan.cu", "libde265_tpu/ops/pallas/intra_scan.py:502",
+            ln19[3], k4, k4_4k[0]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi[0])

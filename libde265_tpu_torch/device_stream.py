@@ -24,6 +24,7 @@ the per-picture variant, fed one plan at a time by the push decoder's
 Python front end (decoder.PictureDecoder) through bridge_plan.
 """
 import copy
+import os
 import queue
 import threading
 import time
@@ -50,6 +51,42 @@ from .reconstruct import reconstruct_frame
 # what host work raises on a corrupted plan (bridge_plan's checks, the
 # packers' asserts, table lookups)
 DATA_ERRORS = (ValueError, AssertionError, IndexError, KeyError)
+
+
+def filter_switches():
+    """(deblocking off, SAO off): the debug kill-switches
+    DE265_DISABLE_DEBLOCK and DE265_DISABLE_SAO (dec265
+    --disable-deblocking / --disable-sao), read as reconstruct.py reads
+    them."""
+    return tuple(os.environ.get(k, "0") != "0"
+                 for k in ("DE265_DISABLE_DEBLOCK", "DE265_DISABLE_SAO"))
+
+
+def switch_filters(plan, off):
+    """`plan`, or, where a switch of `off` (filter_switches) is set, a
+    view of it whose slice headers turn that filter off in every slice:
+    slice_deblocking_filter_disabled_flag set, slice_sao_luma_flag and
+    slice_sao_chroma_flag cleared. Every device route reads the filters
+    from those flags (device_plan.slice_tables: sh_disable, sh_sao_luma,
+    sh_sao_chroma; ops/filters_fused.py's gates), and with them so set
+    the numpy reference skips the filter as its switch does. The view
+    shares everything else with the plan."""
+    deblock_off, sao_off = off
+    if not (deblock_off or sao_off) or not plan.slice_headers:
+        return plan
+    shs = []
+    for sh in plan.slice_headers:
+        sh = copy.copy(sh)
+        if deblock_off:
+            sh.slice_deblocking_filter_disabled_flag = 1
+        if sao_off:
+            sh.slice_sao_luma_flag = sh.slice_sao_chroma_flag = 0
+        shs.append(sh)
+    v = copy.copy(plan)
+    v.slice_headers = shs
+    if plan._pu_arrays is not None:
+        v._pu_arrays = (plan._pu_arrays[0], shs)
+    return v
 
 
 class HostDataError(ValueError):
@@ -94,10 +131,15 @@ class _HostRefShim:
 
 class DeviceStreamDecoder:
     """Decode a parsed plan list with a device-resident DPB on `device`
-    ("cuda" unless the caller asks for "cpu")."""
+    ("cuda" unless the caller asks for "cpu"). The filter kill-switches
+    (filter_switches) are read once, here, and apply to every frame it
+    decodes (switch_filters); with SAO switched off K3 is not
+    launched."""
 
     def __init__(self, plans, sps, device="cuda"):
         self.device = resolve(device)
+        self.filters_off = filter_switches()
+        plans = [switch_filters(p, self.filters_off) for p in plans]
         self.plans = plans
         self.cfg = _host(stream_cfg, plans, sps)
         check_slice(self.cfg)
@@ -122,7 +164,10 @@ class DeviceStreamDecoder:
     def _set_cfg(self, cfg):
         """The program variants that share one state: the scan cfg (no
         intra stage) for inter frames; the full cfg for intra-containing
-        frames; a skip_mc flavour for zero-PU frames (I-frames)."""
+        frames; a skip_mc flavour for zero-PU frames (I-frames). With
+        SAO switched off (filter_switches) no variant runs K3."""
+        if self.filters_off[1]:
+            cfg = replace(cfg, sao_enabled=False)
         self.cfg = cfg
         self.cfg_scan = replace(cfg, intra=(), intra_C=0)
         self._cfgs = {(False, True): self.cfg_scan}
@@ -219,6 +264,7 @@ class DeviceStreamDecoder:
 
     def decode_plan(self, plan, frame_idx):
         """Decode one frame and register it in the device DPB."""
+        plan = switch_filters(plan, self.filters_off)
         fid = plan.frame_id
         needed = self.ref_fids(plan)
         if plan.nal_type == -1:           # concealment: grey frame
@@ -396,7 +442,13 @@ class DeviceStreamDecoder:
         later ones with the C++ packer (packing.pack_blob_native), or
         numpy again where it refuses the layout (intra, PCM, scaling
         lists). An exception on the builder thread is raised here. A
-        stream that schedule_slots refuses runs decode_all."""
+        stream that schedule_slots refuses runs decode_all. With a filter
+        kill-switch set it raises ValueError: the C++ packer reads the
+        slice headers its own parse kept, not the plan's."""
+        if any(self.filters_off):
+            raise ValueError("decode_all_pipelined: the filter kill-switches "
+                             "(DE265_DISABLE_DEBLOCK / DE265_DISABLE_SAO) "
+                             "are set; use decode_all")
         try:
             sched = self.schedule_slots(keep_outputs=keep_outputs)
         except PipelineUnsupported:
@@ -784,6 +836,7 @@ class PictureStreamDecoder(DeviceStreamDecoder):
         DATA_ERRORS exception refuses the picture (the caller then
         reconstructs it on the host and puts it in with insert_host).
         Returns the job for launch."""
+        view = switch_filters(view, self.filters_off)
         if stream_geometry(view.sps) != self.geometry:
             raise ValueError("SPS geometry differs from the decoder's")
         needed = self.ref_fids(view)

@@ -884,3 +884,100 @@ def test_sps_bit_depth_above_16_refused_on_card(cuda, parse):
     cpu, _ = g.trace(api, data, 997, device="cpu", parse=parse)
     assert rec == cpu
     assert rec["warnings"][:1] == [int(W.SPS_HEADER_INVALID)]
+
+
+def _tools_golden():
+    with open(os.path.join(DATA, "manifest_torch_tools.json")) as f:
+        return json.load(f)
+
+
+def _gen_tools():
+    import sys
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..",
+                                    "tools"))
+    import gen_torch_tools_goldens
+    return gen_torch_tools_goldens
+
+
+def _run_tool(name, argv, monkeypatch):
+    """(exit code, stdout) of libde265_tpu_torch.tools.<name>.main; the
+    kill-switch environment it sets is undone after the test."""
+    import contextlib
+    import importlib
+    import io
+    for k in ("DE265_DISABLE_DEBLOCK", "DE265_DISABLE_SAO"):
+        monkeypatch.delenv(k, raising=False)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = importlib.import_module(
+            f"libde265_tpu_torch.tools.{name}").main(argv)
+    return rc, buf.getvalue()
+
+
+@pytest.mark.parametrize("name,which", [
+    (n, w) for n in sorted(_tools_golden()["killswitch"])
+    for w in ("deblock", "sao", "both")])
+def test_dec265_kill_switches_on_card(cuda, name, which, tmp_path,
+                                      monkeypatch):
+    """dec265 --disable-deblocking / --disable-sao / both on the card:
+    every frame equal to the JAX tool's (tests/data/
+    manifest_torch_tools.json), no K3 launch while SAO is off."""
+    from libde265_tpu_torch.ops.kernels.sao_filter import sao_ctb
+    g = _gen_tools()
+    out = tmp_path / "out.yuv"
+    sao_ctb.launches = 0
+    rc, so = _run_tool("dec265", [*g.SWITCHES[which], "--device", "cuda",
+                                  "-o", str(out),
+                                  os.path.join(DATA, name + ".bin")],
+                       monkeypatch)
+    torch.cuda.synchronize()
+    assert rc == 0
+    assert g.frame_md5s(out.read_bytes(), g.n_frames(so)) == \
+        _tools_golden()["killswitch"][name][which]
+    if which != "deblock":
+        assert sao_ctb.launches == 0
+
+
+@pytest.mark.parametrize("name", _tools_golden()["hash_sei"])
+def test_dec265_hash_check_on_card(cuda, name, monkeypatch):
+    rc, so = _run_tool("dec265", ["-c", "--device", "cuda",
+                                  os.path.join(DATA, name + ".bin")],
+                       monkeypatch)
+    assert rc == 0 and "MISMATCH" not in so
+
+
+def test_sherlock_and_seeded_tools_on_card(cuda, tmp_path, monkeypatch):
+    """sherlock's layer pixels, and rd_curves' points (decoded on the
+    card) on the seeded YUV, equal the JAX tools'."""
+    g = _gen_tools()
+    gold = _tools_golden()
+    sg = gold["sherlock"]
+    html = tmp_path / "s.html"
+    rc, _ = _run_tool("sherlock", [
+        os.path.join(DATA, sg["stream"] + ".bin"), "-o", str(html), "-n",
+        str(sg["frames"]), "--device", "cuda"], monkeypatch)
+    assert rc == 0
+    imgs, meta = g.html_images(html.read_text())
+    assert meta == sg["meta"]
+    for d, want in zip(imgs, sg["pixels"]):
+        for k, png in d.items():
+            assert g.pixel_md5(g.filter0_pixels(png)) == want[k], k
+    sd = gold["seeded"]
+    yuv = tmp_path / "in.yuv"
+    yuv.write_bytes(g.tools_yuv(sd["seed"], sd["w"], sd["h"], sd["frames"]))
+    path = tmp_path / "a.json"
+    rc, _ = _run_tool("rd_curves", [
+        "-i", str(yuv), "-w", str(sd["w"]), "-h", str(sd["h"]), "-f",
+        str(sd["rd_curves"]["a"]["frames"]), "--qps",
+        sd["rd_curves"]["qps"], "-o", str(path), "--device", "cuda"],
+        monkeypatch)
+    assert rc == 0
+    assert json.loads(path.read_text()) == sd["rd_curves"]["a"]["points"]
+
+
+def test_acceleration_speed_on_card(cuda, monkeypatch):
+    rc, so = _run_tool("acceleration_speed", ["--time", "--device", "cuda"],
+                       monkeypatch)
+    assert rc == 0 and so.splitlines()[-1] == \
+        "all kernels verified against scalar reference"
+    assert so.count("(CUDA events)") == 8

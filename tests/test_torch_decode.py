@@ -168,7 +168,10 @@ def test_port_runs_without_jax():
     port's encoder (hash
     SEI on), decoding it through the push API with every hash checked,
     scoring it with utils.quality and running parallel.tile_mesh's step,
-    leaves jax and the JAX package (libde265_tpu) out of sys.modules."""
+    then running the command-line tools dec265 (with a kill-switch, so
+    on the per-picture path) and hdrcopy (every module of tools/ is
+    imported by the walk), leaves jax and the JAX package (libde265_tpu)
+    out of sys.modules."""
     code = (
         "import sys, pkgutil, importlib\n"
         "import libde265_tpu_torch as pkg\n"
@@ -267,6 +270,18 @@ def test_port_runs_without_jax():
         "out, s = tile_mesh.make_tile_recon_step(['cpu'] * 2, 32, 64, 2,\n"
         "                                        8)(*inp)\n"
         "assert int(s) == int(out.sum())\n"
+        "tools = {'tools.' + t for t in ('dec265', 'enc265',\n"
+        "         'decodestreams', 'acceleration_speed', 'sherlock',\n"
+        "         'hdrcopy', 'rd_curves', 'bjontegaard')}\n"
+        "assert tools <= walked, tools - walked\n"
+        "import contextlib, io\n"
+        "from libde265_tpu_torch.tools import dec265, hdrcopy\n"
+        "buf = io.StringIO()\n"
+        "with contextlib.redirect_stdout(buf):\n"
+        "    assert dec265.main(['-c', '--disable-sao', '--device', 'cpu',\n"
+        "                        'tests/data/p_hash_sei.bin']) == 0\n"
+        "    assert hdrcopy.main(['tests/data/p_temporal.bin']) == 0\n"
+        "assert 'nFrames decoded: 3 (64x64 @ ' in buf.getvalue()\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'libde265_tpu')]\n"
         "assert not bad, bad\n"
