@@ -216,7 +216,24 @@ card.
    decoded with zlib, and the metadata); hdrcopy's stdout and copy on
    p_temporal; enc265's bytes, rd_curves' points (decoded on the card)
    and bjontegaard's lines on a seeded 128x96 8-frame YUV
-   (tools_yuv); the phase's wall.
+   (tools_yuv); the phase's wall;
+20. the measurement tools (libde265_tpu_torch/tools/bench*.py,
+   profile_*.py) in this process on "cuda" (port_tool): tools.bench on
+   ld4k_light with 3 rounds and 2 spawned parse+pack workers, the
+   counters zeroed just before (its MD5-checked round passes; every
+   serial and pipelined round launches K1 66 / K2 64 / K3 99 / K4 2, and
+   the whole run 16 rounds' worth; both workers report no CUDA context,
+   no jax and torch imported after their environment was set; no
+   segment of the run left under /dev/shm; its JSON line logged after
+   "tools.bench: "; its device_busy_fps positive); profile_frame_stages on 4 P frames (the full
+   variant's DPB and tables equal the default call's, every frame
+   MD5-equal, each variant's launches per frame those of its stages);
+   bench_intra_scan without and with --fori (MD5 match, equal
+   pictures); bench_gop with 1 and 2 workers (every frame MD5-equal);
+   bench_gop_device (no peer or device-to-device copy); bench_e2e on
+   ld720p_light; bench_frontend on two streams into a temporary file;
+   profile_intra; bench_full_pipeline at 4K, and at 512x256 against the
+   CPU's checksum; the phase's wall.
 
 Any failure exits non-zero. The last stdout line is the JSON
 {"ok": true, "device": {...}}; the line before it is the card's name and
@@ -227,9 +244,9 @@ for K1 and K5, the library yardstick's time; the rows of step 10 carry
 the launches of the Main 10 decode, those of step 12 the launches of the
 4:2:2 decode (K3, K4) or of the small vectors of that format (the 4:4:4
 and monochrome K4 rows), the row of step 13 the K3 launches of the
-hybrid 4K decode, the last eight rows the launches of step 18's
-ld4k_light decode and of step 19's dec265 run on it, beside the times
-of step 3.
+hybrid 4K decode, the last twelve rows the launches of step 18's
+ld4k_light decode, of step 19's dec265 run on it and of step 20's
+tools.bench run on it, beside the times of step 3.
 
     python3 chip_smoke.py
 """
@@ -2089,6 +2106,153 @@ def check_tools(counters, wall4):
     return ln
 
 
+def _psm():
+    """Shared-memory segments under /dev/shm (multiprocessing's names)."""
+    return {n for n in os.listdir("/dev/shm") if n.startswith("psm_")}
+
+
+def check_bench_tools(counters):
+    """Phase 20: the measurement tools (libde265_tpu_torch/tools/bench*.py,
+    profile_*.py), each through its main(argv) on "cuda". Returns
+    tools.bench's launches over its whole run on the main stream."""
+    import tempfile
+    import torch
+    from libde265_tpu_torch.tools.bench import JSON_KEYS
+    tp = time.perf_counter()
+    dev = ["--device", "cuda"]
+
+    def zero():
+        torch.cuda.synchronize()
+        for f in counters:
+            f.launches = 0
+
+    def last_json(name, rc, so):
+        if rc != 0:
+            fail(f"{name}: exit {rc}: {so[-2000:]}")
+        return json.loads(so.strip().splitlines()[-1])
+
+    # ---- tools.bench on the main stream, counters zeroed just before
+    per_round = [66, 64, 99, 2, 0]
+    shm0 = _psm()
+    zero()
+    rc, so, wall = port_tool("bench", ["--stream", STREAM, "--rounds", "3",
+                                       "--workers", "2", *dev])
+    torch.cuda.synchronize()
+    ln = [f.launches for f in counters]
+    res = last_json("tools.bench", rc, so)
+    log(f"tools.bench: {so.strip().splitlines()[-1]}")
+    rounds = res["round_launches"]["serial"] + \
+        res["round_launches"]["pipelined"]
+    # verification + 3 serial + 8 pipelined + the IDR and P loops of the
+    # resident diagnostics (3 rounds) + the profiled round of device_busy
+    want = [16 * n for n in per_round]
+    bad_w = [w for w in res["workers"] if w["cuda_initialized"]
+             or w["jax_imported"] or w["torch_imported_first"]]
+    log(f"tools.bench {STREAM}: wall {wall:.3f} s; value {res['value']:.3f}"
+        f" fps, sustained {res['sustained_fps']:.3f} fps (pipelined, "
+        f"spawned workers), serial sustained "
+        f"{res['serial_sustained_fps']:.3f} fps, device only (event "
+        f"window, launches included) {res['device_only_fps']:.3f} fps, "
+        f"device busy {res['device_busy_fps']:.3f} fps (busy share "
+        f"{res['device_busy_share']:.4f}); {len(rounds)} timed rounds "
+        f"each K1-K5 {rounds[0]}; the run's launches {ln}; workers "
+        f"{res['workers']}; shm segments left {res['shm_segments_left']}")
+    if set(res) != set(JSON_KEYS) or any(r != per_round for r in rounds) \
+            or len(rounds) != 3 + 8 or ln != want or bad_w \
+            or res["shm_segments_left"] or not _psm() <= shm0 \
+            or not res["device_busy_fps"] > 0:
+        fail(f"tools.bench: keys {sorted(res)}, round launches {rounds} "
+             f"(want {per_round} each), the run's {ln} (want {want}), "
+             f"workers {bad_w}, shm left {res['shm_segments_left']} / "
+             f"{sorted(_psm() - shm0)}")
+
+    # ---- profile_frame_stages on 4 P frames
+    rc, so, wall = port_tool("profile_frame_stages", [
+        STREAM, "--frames", "4", "--rounds", "3", *dev])
+    res = last_json("profile_frame_stages", rc, so)
+    rows = {r["variant"]: r for r in map(json.loads,
+                                         so.strip().splitlines()[:-1])}
+    # K1-K5 launches per P frame of each variant's stages
+    want = {"none": [0, 0, 0, 0, 0], "tables": [2, 0, 0, 0, 0],
+            "mc_luma": [0, 1, 0, 0, 0], "mc": [0, 2, 0, 0, 0],
+            "mc_res": [0, 2, 0, 0, 0], "mc_res_dbk": [0, 2, 0, 0, 0],
+            "full": [2, 2, 3, 0, 0]}
+    log("profile_frame_stages (4 4K P frames, CUDA events): " + "; ".join(
+        f"{k} {r['ms_per_frame']:.3f} ms" for k, r in rows.items())
+        + f"; attribution {res['attribution_ms']}; full == default "
+        f"{res['full_equals_default']} ({wall:.3f} s)")
+    if not res["full_equals_default"] or res["default_md5_mismatch_pocs"] \
+            or {k: r["launches_per_frame"] for k, r in rows.items()} != want:
+        fail(f"profile_frame_stages: {res}, launches "
+             f"{ {k: r['launches_per_frame'] for k, r in rows.items()} }")
+
+    # ---- bench_intra_scan, K4 and the wavefront levels
+    for argv in ([], ["--fori"]):
+        rc, so, wall = port_tool("bench_intra_scan", [*argv, *dev])
+        log(f"bench_intra_scan {' '.join(argv)}: "
+            + "; ".join(so.strip().splitlines()[1:]) + f" ({wall:.3f} s)")
+        if rc != 0 or "MD5 MATCH" not in so or (
+                argv and "pictures EQUAL" not in so):
+            fail(f"bench_intra_scan {argv}: exit {rc}: {so}")
+
+    # ---- bench_gop with 1 and 2 spawned workers on this card
+    rc, so, wall = port_tool("bench_gop", ["--workers", "1,2", *dev])
+    res = last_json("bench_gop", rc, so)
+    log(f"bench_gop {GOP_STREAM} (every frame MD5-equal to "
+        f"manifest_big.json in each run): " + "; ".join(
+            f"{r['workers']} workers {r['fps']:.3f} fps, efficiency "
+            f"{r['efficiency']:.3f}" for r in res["results"])
+        + f" ({wall:.3f} s)")
+
+    # ---- bench_gop_device: the pipelined GOP stream, the GOP decoder's
+    # copies
+    rc, so, wall = port_tool("bench_gop_device", dev)
+    res = last_json("bench_gop_device", rc, so)
+    log(f"bench_gop_device: {json.dumps(res)} ({wall:.3f} s)")
+    if res["peer_copies"] or res["d2d_copies"]:
+        fail(f"bench_gop_device: {res['peer_copies']} peer and "
+             f"{res['d2d_copies']} device-to-device copies, want 0")
+
+    # ---- bench_e2e, bench_frontend, profile_intra
+    rc, so, wall = port_tool("bench_e2e", [
+        os.path.join(DATA, "ld720p_light.bin"), "device", "3", *dev])
+    if rc != 0:
+        fail(f"bench_e2e: exit {rc}: {so}")
+    log(f"bench_e2e: {so.strip()}")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "fe.jsonl")
+        rc, so, wall = port_tool("bench_frontend", [
+            out, "--streams", "ld720p_light,ld4k_light", "--reps", "1"])
+        with open(out) as f:
+            rows = [json.loads(ln_) for ln_ in f]
+    log("bench_frontend: " + "; ".join(
+        f"{r['stream']} threads {r['threads']}: parse {r['parse_fps']:.1f}"
+        f", extract {r['extract_fps']:.1f} fps" for r in rows))
+    if rc != 0 or so or len(rows) != 4:
+        fail(f"bench_frontend: exit {rc}, stdout {so!r}, {len(rows)} rows")
+    rc, so, wall = port_tool("profile_intra", ["--reps", "1", *dev])
+    log(f"profile_intra: {json.dumps(last_json('profile_intra', rc, so))} "
+        f"({wall:.3f} s)")
+
+    # ---- bench_full_pipeline at 4K, and small against the CPU
+    rc, so, wall = port_tool("bench_full_pipeline", ["--iters", "5", *dev])
+    log(f"bench_full_pipeline: "
+        f"{json.dumps(last_json('bench_full_pipeline', rc, so))}")
+    small = ["--iters", "2", "--height", "256", "--width", "512"]
+    got = last_json("bench_full_pipeline", *port_tool(
+        "bench_full_pipeline", [*small, *dev])[:2])["checksum"]
+    ref = last_json("bench_full_pipeline", *port_tool(
+        "bench_full_pipeline", [*small, "--device", "cpu"])[:2])["checksum"]
+    log(f"bench_full_pipeline 512x256: checksum {got} on the card, {ref} "
+        f"on the CPU")
+    if got != ref:
+        fail("bench_full_pipeline: the card's checksum differs from the "
+             "CPU's")
+    log(f"phase 20 (the measurement tools): {time.perf_counter() - tp:.3f}"
+        f" s")
+    return ln
+
+
 def main():
     try:
         import torch
@@ -2670,6 +2834,11 @@ def main():
     torch.cuda.empty_cache()
     ln19 = check_tools(counters, wall4)
 
+    # ---- 20: the measurement tools, counters zeroed just before
+    # tools.bench's run on the main path
+    torch.cuda.empty_cache()
+    ln20 = check_bench_tools(counters)
+
     ms_i, ms_p = frame_times(dev, plans)
     log(f"frame program (CUDA events): 4K IDR {ms_i:.3f} ms, 4K P frame "
         f"{ms_p:.3f} ms")
@@ -2764,6 +2933,18 @@ def main():
         row("K4 intra scan, dec265 CLI (4K IDR luma, whole frame)",
             "intra_scan.cu", "libde265_tpu/ops/pallas/intra_scan.py:502",
             ln19[3], k4, k4_4k[0]),
+        row("K1 tile-table update, tools.bench (4K luma slot)",
+            "mc_tables.cu", "libde265_tpu/ops/pallas/mc_tables.py:263",
+            ln20[0], k1, k1[0]),
+        row("K2 MC, tools.bench (4K P frame luma)",
+            "mc_filter.cu", "libde265_tpu/ops/pallas/mc_filter.py:67",
+            ln20[1], k2, k2[0]),
+        row("K3 SAO, tools.bench (4K P frame luma plane)",
+            "sao_filter.cu", "libde265_tpu/ops/pallas/sao_filter.py:87",
+            ln20[2], k3, k3[0]),
+        row("K4 intra scan, tools.bench (4K IDR luma, whole frame)",
+            "intra_scan.cu", "libde265_tpu/ops/pallas/intra_scan.py:502",
+            ln20[3], k4, k4_4k[0]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi[0])

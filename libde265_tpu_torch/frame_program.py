@@ -11,7 +11,9 @@ stacks and tables are updated in place (the JAX program donates them, so
 in-place update is the same dataflow). Each stage runs
 under a torch.profiler.record_function range named after it (grids, mc,
 residual, pcm, intra, deblock, sao, insert), which profile_frames.py
-reads.
+reads. `stages` leaves stages out by not launching them (the JAX
+program's profiling ablation, tools/profile_frame_stages.py); every
+decoder runs the full default.
 
 The port runs every chroma format (monochrome, 4:2:0, 4:2:2, 4:4:4) at
 8 to 12 bits (uint8 tile tables at 8 bits, int16 above, as the JAX
@@ -168,39 +170,53 @@ def frame_grids(t, cfg: ProgramCfg):
     return t
 
 
+# the stages of the frame program (the JAX program's default `stages`);
+# "tables" is K1's insert-time table update. "mc_luma_only" may be added
+# beside "mc": the [Cb|Cr] K2 launch is left out at 4:2:0.
+STAGES = ("mc", "res", "intra", "dbk", "sao", "tables")
+
+
 def decode_frame_device(dy, dcb, dcr, ty, tc, t, out_slot,
-                        cfg: ProgramCfg):
+                        cfg: ProgramCfg, stages=STAGES):
     """Decode one frame from its packed plan tensors `t` (pack_frame,
     moved to the device) into DPB slot `out_slot` (python int).
     dy/dcb/dcr: (REF_SLOTS,H,W)/(REF_SLOTS,Hc,Wc) int16 DPB stacks;
-    ty/tc: persistent tile tables. All five are updated in place."""
+    ty/tc: persistent tile tables. All five are updated in place.
+    stages: the stages that run (STAGES); a stage left out is not
+    launched and its output is what the JAX program's ablation gives
+    (zero prediction without "mc", no residual or PCM without "res", no
+    table update without "tables"; the DPB insert always runs)."""
     H, W = cfg.H, cfg.W
     Hc, Wc = cfg.chroma_dims
     with record_function("grids"):
         t = frame_grids(t, cfg)
-    if cfg.skip_mc:
+    if cfg.skip_mc or "mc" not in stages:
         z = [torch.zeros(s, dtype=torch.int32, device=dy.device)
              for s in ((H, W), (Hc, Wc), (Hc, Wc))]
-        return _finish_frame(dy, dcb, dcr, ty, tc, t, out_slot, cfg, *z)
+        return _finish_frame(dy, dcb, dcr, ty, tc, t, out_slot, cfg,
+                             stages, *z)
 
     with record_function("mc"):
-        Y, Cb, Cr = _motion_compensate(ty, tc, dcb, dcr, t, cfg)
-    return _finish_frame(dy, dcb, dcr, ty, tc, t, out_slot, cfg, Y, Cb, Cr)
+        Y, Cb, Cr = _motion_compensate(ty, tc, dcb, dcr, t, cfg,
+                                       "mc_luma_only" in stages)
+    return _finish_frame(dy, dcb, dcr, ty, tc, t, out_slot, cfg, stages,
+                         Y, Cb, Cr)
 
 
-def _motion_compensate(ty, tc, dcb, dcr, t, cfg):
+def _motion_compensate(ty, tc, dcb, dcr, t, cfg, luma_only=False):
     """Inter prediction of every inter 4x4 block; zero elsewhere. K2 from
     the tile tables: one launch for luma and, at 4:2:0, one for the
-    [Cb|Cr] pair. 4:2:2 / 4:4:4 chroma comes from the chroma DPB stacks
-    (mc_chroma_dense); monochrome chroma stays the zero dummies. Returns
-    int32 (Y, Cb, Cr)."""
+    [Cb|Cr] pair (none with luma_only: zero chroma). 4:2:2 / 4:4:4
+    chroma comes from the chroma DPB stacks (mc_chroma_dense);
+    monochrome chroma stays the zero dummies. Returns int32 (Y, Cb,
+    Cr)."""
     mv, slot, pf, wts, ex, inter = mc_inputs(t, cfg)
     args = ((cfg.H, cfg.W), mv, slot, pf, wts, ex, inter, cfg.bitdepth,
             cfg.has_bi)
     Y, = mc_predict(ty, *args)
-    if cfg.chroma_fmt == 1:
+    if cfg.chroma_fmt == 1 and not luma_only:
         Cb, Cr = mc_predict(tc, *args)
-    elif cfg.mono:
+    elif cfg.mono or cfg.chroma_fmt == 1:
         Cb, Cr = (torch.zeros(cfg.chroma_dims, dtype=torch.int32,
                               device=Y.device) for _ in range(2))
     else:
@@ -313,66 +329,71 @@ def _paste_pcm(Y, Cb, Cr, t, cfg, maxv):
     return Y, Cb, Cr
 
 
-def _finish_frame(dy, dcb, dcr, ty, tc, t, out_slot, cfg, Y, Cb, Cr):
-    """Residual add + intra + loop filters + DPB/table insert."""
+def _finish_frame(dy, dcb, dcr, ty, tc, t, out_slot, cfg, stages, Y, Cb,
+                  Cr):
+    """Residual add + intra + loop filters + DPB/table insert, each stage
+    only if it is in `stages` (the insert always)."""
     bd = cfg.bitdepth
     maxv = (1 << bd) - 1
 
     # ---- inter residuals
-    with record_function("residual"):
-        planes = [Y, Cb, Cr]
-        for bi_, (cidx, log2, K) in enumerate(cfg.buckets):
-            c = _bucket_coeffs(t, cfg, bi_, cidx, log2, K)
-            qpv = t[f"rq_{cidx}_{log2}"]
-            smat = t[f"sm_{cidx}_{log2}"] if cfg.scaling else None
-            if smat is None:
-                res = residual_batch(c, qpv, log2, False, bd)
-            else:
-                res = residual_batch_sl(c, qpv, smat, log2, False, bd)
-            kinds = cfg.res_kinds[bi_] if cfg.res_kinds else 0
-            if kinds:
-                res = residual_kinds(res, c, qpv, smat,
-                                     t[f"rk_{cidx}_{log2}"], kinds, log2, bd)
-            planes[cidx] = _scatter_residual_slots(
-                planes[cidx], res, t[f"rs_{cidx}_{log2}"], log2, maxv)
-        Y, Cb, Cr = planes
+    if "res" in stages:
+        with record_function("residual"):
+            planes = [Y, Cb, Cr]
+            for bi_, (cidx, log2, K) in enumerate(cfg.buckets):
+                c = _bucket_coeffs(t, cfg, bi_, cidx, log2, K)
+                qpv = t[f"rq_{cidx}_{log2}"]
+                smat = t[f"sm_{cidx}_{log2}"] if cfg.scaling else None
+                if smat is None:
+                    res = residual_batch(c, qpv, log2, False, bd)
+                else:
+                    res = residual_batch_sl(c, qpv, smat, log2, False, bd)
+                kinds = cfg.res_kinds[bi_] if cfg.res_kinds else 0
+                if kinds:
+                    res = residual_kinds(res, c, qpv, smat,
+                                         t[f"rk_{cidx}_{log2}"], kinds,
+                                         log2, bd)
+                planes[cidx] = _scatter_residual_slots(
+                    planes[cidx], res, t[f"rs_{cidx}_{log2}"], log2, maxv)
+            Y, Cb, Cr = planes
 
     # ---- PCM paste, before intra (PCM samples are neighbours of intra
     # TUs). The pm grid masked MC out of PCM blocks and no TU scatters
     # there, so the add lands on zeros: an overwrite.
-    if cfg.pcm:
+    if cfg.pcm and "res" in stages:
         with record_function("pcm"):
             Y, Cb, Cr = _paste_pcm(Y, Cb, Cr, t, cfg, maxv)
     Y, Cb, Cr = (p.contiguous() for p in (Y, Cb, Cr))
 
     # ---- intra (reads post-inter-residual neighbours, the reference's
     # in-loop order: decode_TU slice.cc:3424)
-    if cfg.intra:
+    if cfg.intra and "intra" in stages:
         with record_function("intra"):
             Y, Cb, Cr = intra_stage_scan(Y, Cb, Cr, t, cfg)
 
     # ---- deblock (metadata derived on the device)
-    with record_function("deblock"):
-        lm, cmeta = plan_deblock_device(t, cfg.fcfg)
-        for vi, vertical in enumerate((True, False)):
-            Y = deblock_luma_pass(Y, *lm[vi], vertical=vertical,
-                                  bitdepth=bd)
-            if cmeta is None:                    # monochrome
-                continue
-            # the maps are 4x4-luma-granular: chroma lines a map row by
-            # the along-edge subsampling
-            rep = 4 // (cfg.subh if vertical else cfg.subw)
-            act, tc_map, p_off, q_off = cmeta[vi]
-            Cb = deblock_chroma_pass(Cb, act[0], tc_map[0], p_off, q_off,
-                                     vertical=vertical, bitdepth=bd,
-                                     rep=rep)
-            Cr = deblock_chroma_pass(Cr, act[1], tc_map[1], p_off, q_off,
-                                     vertical=vertical, bitdepth=bd,
-                                     rep=rep)
+    if "dbk" in stages:
+        with record_function("deblock"):
+            lm, cmeta = plan_deblock_device(t, cfg.fcfg)
+            for vi, vertical in enumerate((True, False)):
+                Y = deblock_luma_pass(Y, *lm[vi], vertical=vertical,
+                                      bitdepth=bd)
+                if cmeta is None:                    # monochrome
+                    continue
+                # the maps are 4x4-luma-granular: chroma lines a map row
+                # by the along-edge subsampling
+                rep = 4 // (cfg.subh if vertical else cfg.subw)
+                act, tc_map, p_off, q_off = cmeta[vi]
+                Cb = deblock_chroma_pass(Cb, act[0], tc_map[0], p_off,
+                                         q_off, vertical=vertical,
+                                         bitdepth=bd, rep=rep)
+                Cr = deblock_chroma_pass(Cr, act[1], tc_map[1], p_off,
+                                         q_off, vertical=vertical,
+                                         bitdepth=bd, rep=rep)
 
     # ---- SAO (K3 from the per-CTB parameters, one launch per plane;
     # monochrome chroma dummies pass through)
-    if cfg.sao_enabled:
+    if cfg.sao_enabled and "sao" in stages:
         with record_function("sao"):
             Y, Cb, Cr = (P if ci and cfg.mono
                          else sao_ctb(P, t, cfg.scfg, ci, bitdepth=bd)
@@ -380,8 +401,11 @@ def _finish_frame(dy, dcb, dcr, ty, tc, t, out_slot, cfg, Y, Cb, Cr):
 
     # ---- DPB + tile-table insert (K1)
     with record_function("insert"):
-        dy[out_slot] = Y.to(torch.int16)
-        dcb[out_slot] = Cb.to(torch.int16)
-        dcr[out_slot] = Cr.to(torch.int16)
-        update_tables(ty, tc, Y, Cb, Cr, out_slot, cfg)
+        # one converting copy a plane (an int16 temporary would cost a
+        # device-to-device memcpy more)
+        dy[out_slot].copy_(Y)
+        dcb[out_slot].copy_(Cb)
+        dcr[out_slot].copy_(Cr)
+        if "tables" in stages:
+            update_tables(ty, tc, Y, Cb, Cr, out_slot, cfg)
     return dy, dcb, dcr, ty, tc

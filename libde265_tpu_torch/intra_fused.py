@@ -501,6 +501,13 @@ def avail_spans(avail):
                      hole.to(torch.int64)).to(torch.int32)
 
 
+def _pad_cols(a, width):
+    """(N, w) -> (N, width), zero columns on the right; `a` itself when
+    w == width (a zero pad would copy it: a device-to-device memcpy)."""
+    return a if a.shape[1] == width else \
+        torch.nn.functional.pad(a, (0, width - a.shape[1]))
+
+
 def _group_inputs(t, cfg, res_all, pl, classes, K, BH, BW, perms):
     """Kernel inputs (intra_scan keyword arguments, planes aside) of one
     plane group: residual and availability pools in class-row order, the
@@ -513,9 +520,9 @@ def _group_inputs(t, cfg, res_all, pl, classes, K, BH, BW, perms):
     for l, kt in zip(log2s, Ktots):
         nsq = 1 << (2 * l)
         r = res_all[f"_{pl}_{l}"].reshape(kt, nsq)
-        respool.append(torch.nn.functional.pad(r, (0, RW - nsq)))
+        respool.append(_pad_cols(r, RW))
         bits = unpack_bits(t[f"iok_{pl}_{l}"], 8 * _okbytes(l))
-        avpool.append(torch.nn.functional.pad(bits, (0, 256 - bits.shape[1])))
+        avpool.append(_pad_cols(bits, 256))
     avail = torch.cat(avpool)
     xcat = torch.cat([t[f"ixy_{pl}_{l}"][:, 0] for l in log2s]).to(
         torch.int64)

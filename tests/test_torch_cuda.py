@@ -981,3 +981,107 @@ def test_acceleration_speed_on_card(cuda, monkeypatch):
     assert rc == 0 and so.splitlines()[-1] == \
         "all kernels verified against scalar reference"
     assert so.count("(CUDA events)") == 8
+
+
+# ---- the measurement tools (libde265_tpu_torch/tools/bench*.py,
+# profile_*.py) and the frame program's stages on the card
+
+_STAGE_SETS = [(), ("tables",), ("mc", "mc_luma_only"), ("mc",),
+               ("mc", "res"), ("mc", "res", "dbk"),
+               ("mc", "res", "dbk", "sao", "tables")]
+
+
+@pytest.mark.parametrize("stages", _STAGE_SETS, ids=lambda s: "-".join(s))
+def test_stages_on_card(cuda, stages):
+    """decode_frame_device(stages=...) on p_mv's first P frame on the
+    card against the CPU (the kernels' plain versions), from the same
+    seeded state: identical DPB stacks and tile tables, and K1 / K2 / K3
+    launched only for the stages that run them."""
+    from dataclasses import replace
+    from libde265_tpu_torch.convert import plan_from_numpy
+    from libde265_tpu_torch.frame_program import (decode_frame_device,
+                                                  init_tables)
+    from libde265_tpu_torch.ops.kernels.mc_filter import mc_predict
+    from libde265_tpu_torch.ops.kernels.mc_tables import update_tile_table
+    from libde265_tpu_torch.ops.kernels.sao_filter import sao_ctb
+    from libde265_tpu_torch.packing import REF_SLOTS, pack_frame, stream_cfg
+    plans = _plans("p_mv")
+    cfg = replace(stream_cfg(plans, plans[0].sps), intra=(), intra_C=0)
+    t = pack_frame(plans[1], cfg, {plans[0].frame_id: 2,
+                                   plans[1].frame_id: 6})
+    rng = np.random.RandomState(3)
+    H, W = cfg.H, cfg.W
+    init = [rng.randint(0, 256, s).astype(np.int16) for s in (
+        (REF_SLOTS, H, W), (REF_SLOTS, H // 2, W // 2),
+        (REF_SLOTS, H // 2, W // 2))]
+    init += [rng.randint(0, 256, tuple(a.shape)).astype(np.uint8)
+             for a in init_tables(cfg, "cpu")]
+    counters = (update_tile_table, mc_predict, sao_ctb)
+    outs = []
+    for dev in ("cpu", cuda):
+        for f in counters:
+            f.launches = 0
+        state = [torch.from_numpy(a).to(dev) for a in init]
+        outs.append(decode_frame_device(*state, plan_from_numpy(t, dev), 6,
+                                        cfg, stages=stages))
+        torch.cuda.synchronize()
+        ln = [f.launches for f in counters]
+    assert ln == [2 * ("tables" in stages),
+                  ("mc" in stages) * (1 if "mc_luma_only" in stages else 2),
+                  3 * ("sao" in stages and cfg.sao_enabled)]
+    for a, b in zip(*outs):
+        assert torch.equal(a, b.cpu())
+
+
+def test_bench_tool_on_card(cuda, monkeypatch):
+    """tools.bench on p_mv on the card (2 rounds, 2 spawned workers):
+    the MD5-checked round passes, every timed round launches K1 8, K2 6
+    and K4 2 (p_mv has no SAO: no K3), the workers touched neither CUDA
+    nor jax, and no segment is left under /dev/shm."""
+    rc, so = _run_tool("bench", ["--stream", "p_mv", "--manifest",
+                                 "manifest_inter.json", "--rounds", "2",
+                                 "--workers", "2", "--device", "cuda"],
+                       monkeypatch)
+    assert rc == 0
+    res = json.loads(so.strip().splitlines()[-1])
+    rounds = res["round_launches"]["serial"] + \
+        res["round_launches"]["pipelined"]
+    assert len(rounds) == 10 and all(r == [8, 6, 0, 2, 0] for r in rounds)
+    assert res["metric"] == "cuda_4k_e2e_decode_fps"
+    assert res["device_busy_fps"] > 0 and res["device_busy_share"] > 0
+    for w in res["workers"]:
+        assert not (w["cuda_initialized"] or w["jax_imported"]
+                    or w["torch_imported_first"]), w
+    assert res["shm_segments_left"] == 0
+
+
+def test_bench_intra_scan_on_card(cuda, monkeypatch):
+    rc, so = _run_tool("bench_intra_scan", [
+        "p_mv", "--fori", "--manifest", "manifest_inter.json", "--device",
+        "cuda"], monkeypatch)
+    assert rc == 0 and "MD5 MATCH" in so and "pictures EQUAL" in so
+
+
+def test_full_pipeline_on_card_matches_cpu(cuda, monkeypatch):
+    """The synthetic chain's checksum on the card equals the CPU's."""
+    got = []
+    for dev in ("cuda", "cpu"):
+        rc, so = _run_tool("bench_full_pipeline", [
+            "--iters", "2", "--height", "128", "--width", "256",
+            "--device", dev], monkeypatch)
+        assert rc == 0
+        got.append(json.loads(so.strip().splitlines()[-1])["checksum"])
+    assert got[0] == got[1]
+
+
+@pytest.mark.parametrize("name,argv", [
+    ("profile_frame_stages", ["p_mv", "--manifest", "manifest_inter.json",
+                              "--rounds", "1"]),
+    ("profile_intra", ["p_mv", "--reps", "1"]),
+    ("bench_gop_device", ["--stream", "p_mv", "--manifest",
+                          "manifest_inter.json"]),
+    ("bench_e2e", [os.path.join(DATA, "p_mv.bin"), "device", "1"]),
+])
+def test_measurement_tool_on_card(cuda, monkeypatch, name, argv):
+    rc, so = _run_tool(name, [*argv, "--device", "cuda"], monkeypatch)
+    assert rc == 0, so
