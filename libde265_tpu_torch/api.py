@@ -28,6 +28,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from . import telemetry
 from .bitstream.nal import split_annexb
 from .bitstream.paramsets import read_sps, read_pps
 from .decoder import Decoder, PictureDecoder
@@ -168,23 +169,26 @@ def _decode_plans(plans, dev, keep=(), tile_devices=None):
     ShardedStreamDecoder), synchronised, concealment frames first
     (_conceal_first). Frames in `keep` stay readable through
     dec.planes_of after it, as the output frames do. Returns
-    (DecodedPictures in output order, decoder)."""
-    plans = _conceal_first(plans)
-    if tile_devices is None:
-        dec = DeviceStreamDecoder(plans, plans[0].sps, dev)
-    else:
-        dec = ShardedStreamDecoder(plans, plans[0].sps, tile_devices)
-    for fid in keep:
-        dec.last_use[fid] = len(plans)
-    dec.decode_all()
-    for d in getattr(dec, "devices", [dec.device]):
-        if d.type == "cuda":
-            torch.cuda.synchronize(d)
-    done = [p for p in plans if p.nal_type != -1 and p.output_flag]
-    refs = _RefShim()
-    for plan in done:
-        refs.add(plan.frame_id, plan, dec.planes_of(plan.frame_id))
-    return _order_and_crop(done, refs), dec
+    (DecodedPictures in output order, decoder). Spans: decode_plans (n:
+    frames) around it all, sync around the wait for the device."""
+    with telemetry.span("decode_plans", len(plans)):
+        plans = _conceal_first(plans)
+        if tile_devices is None:
+            dec = DeviceStreamDecoder(plans, plans[0].sps, dev)
+        else:
+            dec = ShardedStreamDecoder(plans, plans[0].sps, tile_devices)
+        for fid in keep:
+            dec.last_use[fid] = len(plans)
+        dec.decode_all()
+        with telemetry.span("sync"):
+            for d in getattr(dec, "devices", [dec.device]):
+                if d.type == "cuda":
+                    torch.cuda.synchronize(d)
+        done = [p for p in plans if p.nal_type != -1 and p.output_flag]
+        refs = _RefShim()
+        for plan in done:
+            refs.add(plan.frame_id, plan, dec.planes_of(plan.frame_id))
+        return _order_and_crop(done, refs), dec
 
 
 def decode_stream_native(data: bytes, device="cuda", stats=None,
@@ -245,16 +249,26 @@ def new_decoder(parse="native", **kw):
     (IDR or BLA to the next) at a time; parse="python"
     (decoder.PictureDecoder): the JAX decoder's own path, every slice
     parsed in Python and each picture reconstructed on the device when
-    it ends, output one picture at a time as the DPB bumps it."""
-    if parse == "native":
-        return Decoder(**kw)
-    if parse == "python":
-        return PictureDecoder(**kw)
-    raise ValueError(f"parse={parse!r}: 'native' or 'python'")
+    it ends, output one picture at a time as the DPB bumps it.
+
+    Each call of the push API below runs in a telemetry span
+    "api.<call>" with the decoder's serial number as its request id;
+    api.decode's n is the number of pictures the call added to the
+    output queue."""
+    with telemetry.span("api.new_decoder") as s:
+        if parse == "native":
+            dec = Decoder(**kw)
+        elif parse == "python":
+            dec = PictureDecoder(**kw)
+        else:
+            raise ValueError(f"parse={parse!r}: 'native' or 'python'")
+        s.request = dec.serial
+        return dec
 
 
 def push_data(dec: Decoder, data: bytes, pts=None):
-    dec.push_data(data, pts)
+    with telemetry.span("api.push_data", len(data), dec.serial):
+        dec.push_data(data, pts)
 
 
 def push_nal(dec: Decoder, data: bytes, pts=None):
@@ -262,16 +276,22 @@ def push_nal(dec: Decoder, data: bytes, pts=None):
 
 
 def flush_data(dec: Decoder):
-    dec.flush()
+    with telemetry.span("api.flush_data", 0, dec.serial):
+        dec.flush()
 
 
 def decode(dec: Decoder) -> bool:
-    return dec.decode()
+    with telemetry.span("api.decode", 0, dec.serial) as s:
+        queued = dec.queued()
+        more = dec.decode()
+        s.n = dec.queued() - queued
+        return more
 
 
 def reset(dec: Decoder):
     """Reset decoder state for seeking (de265_reset)."""
-    dec.reset()
+    with telemetry.span("api.reset", 0, dec.serial):
+        dec.reset()
 
 
 def get_warning(dec: Decoder):
@@ -281,7 +301,8 @@ def get_warning(dec: Decoder):
 
 def get_next_picture(dec: Decoder):
     """Pop the next DecodedPicture in output order, or None."""
-    return dec.get_next_picture()
+    with telemetry.span("api.get_next_picture", 0, dec.serial):
+        return dec.get_next_picture()
 
 
 def peek_next_picture(dec: Decoder):

@@ -8,6 +8,8 @@ dtypes, so both packages can be fed identical inputs."""
 import numpy as np
 import torch
 
+from . import telemetry
+
 _TABLES = {}
 
 
@@ -42,5 +44,8 @@ def device_table(name, array, device):
 
 def plan_from_numpy(t, device):
     """Packed plan dict (packing.pack_frame / frame_program.pack_frame)
-    -> dict of tensors on `device`."""
-    return {k: to_tensor(v, device) for k, v in t.items()}
+    -> dict of tensors on `device`, in a telemetry span "upload" (n:
+    bytes)."""
+    with telemetry.span("upload", sum(np.asarray(v).nbytes
+                                      for v in t.values())):
+        return {k: to_tensor(v, device) for k, v in t.items()}

@@ -44,11 +44,11 @@ checks and the warnings are the JAX decoder's; only the decode() call
 after which a picture appears may differ (the warnings of a segment's
 hash checks come when it is decoded).
 """
-import time
 from collections import deque
 from dataclasses import dataclass
 from typing import Dict, List, Optional
 
+from . import telemetry
 from .bitstream import nal as nal_mod
 from .bitstream.ctu import SliceReader
 from .bitstream.nal import NALParser
@@ -92,6 +92,7 @@ class _NalDecoder:
 
     def __init__(self, device="cuda"):
         self.device = resolve(device)
+        self.serial = telemetry.next_request()   # the spans' request id
         self.vps: Dict[int, VPS] = {}
         self.sps: Dict[int, SPS] = {}
         self.pps: Dict[int, PPS] = {}
@@ -324,7 +325,7 @@ class PictureDecoder(_NalDecoder):
     stats: n_frames (pictures reconstructed), n_host_frames (numpy:
     frame_uses_rext_tools, or a plan the host packing refused),
     n_hybrid_frames, n_concealed_frames (grey after numpy failed too),
-    parse_s (host seconds in SliceReader)."""
+    parse_s (host seconds in SliceReader: the slice_parse spans)."""
 
     def __init__(self, device="cuda"):
         super().__init__(device)
@@ -386,6 +387,10 @@ class PictureDecoder(_NalDecoder):
         """Pop the next picture in output order (an api.DecodedPicture)
         or None."""
         return self._picture(self.dpb.pop_output())
+
+    def queued(self):
+        """Pictures waiting in the output queue."""
+        return len(self.dpb.output_queue)
 
     def peek_next_picture(self):
         return self._picture(self.dpb.peek_output())
@@ -449,9 +454,10 @@ class PictureDecoder(_NalDecoder):
         reader = SliceReader(self.img, sh, slice_data, motion=motion,
                              wpp_contexts=self.wpp_contexts,
                              dep_slice_ctx=self.dep_slice_ctx)
-        t0 = time.perf_counter()
+        sp = telemetry.span("slice_parse")
         try:
-            reader.decode()
+            with sp:
+                reader.decode()
         except Exception as e:
             # corrupted slice data: keep whatever was decoded, mark the
             # picture, continue with the next NAL (reference: mark rows
@@ -462,7 +468,7 @@ class PictureDecoder(_NalDecoder):
                 self.dpb.pics[self.img_dpb_idx].integrity = 1
             return
         finally:
-            self.stats["parse_s"] += time.perf_counter() - t0
+            self.stats["parse_s"] += sp.seconds
         self.dep_slice_ctx = reader.saved_ctx_for_dep
 
     # ------------------------------------------------------------- pictures
@@ -945,6 +951,10 @@ class Decoder(_NalDecoder):
         or None."""
         return self._output.popleft() if self._output else None
 
+    def queued(self):
+        """Pictures waiting in the output queue."""
+        return len(self._output)
+
     def peek_next_picture(self):
         return self._output[0] if self._output else None
 
@@ -1015,9 +1025,8 @@ class Decoder(_NalDecoder):
         refuses (ValueError), or one of whose frames the host work
         refuses before its launches (device_stream.HostDataError), goes
         to _decode_python; any other error of the decode leaves
-        decode()."""
-        from .api import _decode_plans, _param_sets
-        from .native_frontend import NativeFrontend
+        decode(). Spans: segment (n: the pictures it queued), with
+        param_sets, the native parse and api._decode_plans inside."""
         seg, pics, held = self._seg, self._seg_pics, self._held
         starts, ps = self._seg_starts, self._seg_ps
         self._seg, self._seg_pics, self._held = [], [], []
@@ -1027,8 +1036,18 @@ class Decoder(_NalDecoder):
         if not seg:
             self._flush_warnings(held, [], {}, None)
             return
+        with telemetry.span("segment") as sp:
+            queued = self.queued()
+            self._decode_segment_data(seg, starts, pics, held, ps)
+            sp.n = self.queued() - queued
+
+    def _decode_segment_data(self, seg, starts, pics, held, ps):
+        """_decode_segment's work on a segment that holds NALs."""
+        from .api import _decode_plans, _param_sets
+        from .native_frontend import NativeFrontend
         data = b"".join(_START + raw for raw in ps[3] + [r for r, _ in seg])
-        spss, ppss = _param_sets(data)
+        with telemetry.span("param_sets"):
+            spss, ppss = _param_sets(data)
         try:
             plans = NativeFrontend().parse(data, spss, ppss)
         except ValueError:
@@ -1118,8 +1137,10 @@ class Decoder(_NalDecoder):
             m = meta.get(plan.frame_id)
             if m is None or m.hash is None:
                 return
-            if verify_picture_hash(dec.planes_of(plan.frame_id), m.hash,
-                                   plan.sps.BitDepthY):
+            with telemetry.span("hash_check"):
+                ok = verify_picture_hash(dec.planes_of(plan.frame_id),
+                                         m.hash, plan.sps.BitDepthY)
+            if ok:
                 self.hash_checks_passed += 1
             else:
                 add(W.CHECKSUM_MISMATCH,

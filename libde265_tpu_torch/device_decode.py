@@ -12,13 +12,14 @@ The planes are int32 tensors on the decoder's device from the first
 stage to the DPB insert (the JAX version round-trips them to numpy
 between stages); MC reads the references from the DPB stacks at their
 slots, and the insert (`_do_insert`) refreshes the tile tables with K1.
-SAO runs K3. Every stage runs under a torch.profiler.record_function
-range named after it (STAGES, then "insert").
+SAO runs K3. A frame runs in the telemetry span "hybrid" (telemetry.py)
+and each stage in a span inside it named after the stage (STAGES, then
+"insert").
 """
 import numpy as np
 import torch
-from torch.profiler import record_function
 
+from . import telemetry
 from .backend import add_frame_residuals
 from .convert import to_tensor
 from .ops.filters_fused import apply_filters_fused
@@ -103,11 +104,12 @@ def reconstruct_frame_device(plan, dec, out_slot=None):
     references read from dec's DPB stacks (every one resident). With
     out_slot, the result goes into the DPB stacks and tile tables at
     that slot (dec._do_insert). Returns the [Y, Cb, Cr] int32 planes."""
-    planes = new_planes(plan, dec.device)
-    for name, stage in STAGES:
-        with record_function(name):
-            planes = stage(plan, dec, planes, dec.cfg.bitdepth)
-    if out_slot is not None:
-        with record_function("insert"):
-            dec._do_insert(planes, out_slot)
-    return planes
+    with telemetry.span("hybrid"):
+        planes = new_planes(plan, dec.device)
+        for name, stage in STAGES:
+            with telemetry.span(name):
+                planes = stage(plan, dec, planes, dec.cfg.bitdepth)
+        if out_slot is not None:
+            with telemetry.span("insert"):
+                dec._do_insert(planes, out_slot)
+        return planes

@@ -27,13 +27,13 @@ import copy
 import os
 import queue
 import threading
-import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import replace
 
 import numpy as np
 import torch
 
+from . import telemetry
 from .convert import plan_from_numpy, to_tensor
 from .device import resolve
 from .device_decode import reconstruct_frame_device
@@ -134,14 +134,24 @@ class DeviceStreamDecoder:
     ("cuda" unless the caller asks for "cpu"). The filter kill-switches
     (filter_switches) are read once, here, and apply to every frame it
     decodes (switch_filters); with SAO switched off K3 is not
-    launched."""
+    launched.
+
+    Spans: stream_setup (this constructor, with stream_cfg: the scan of
+    every plan for the program's caps), pack (n: frames; their seconds
+    add up to pack_seconds), upload (n: bytes), download (n: bytes), and
+    the frame program's and the hybrid path's own."""
 
     def __init__(self, plans, sps, device="cuda"):
+        with telemetry.span("stream_setup"):
+            self._setup(plans, sps, device)
+
+    def _setup(self, plans, sps, device):
         self.device = resolve(device)
         self.filters_off = filter_switches()
         plans = [switch_filters(p, self.filters_off) for p in plans]
         self.plans = plans
-        self.cfg = _host(stream_cfg, plans, sps)
+        with telemetry.span("stream_cfg", len(plans)):
+            self.cfg = _host(stream_cfg, plans, sps)
         check_slice(self.cfg)
         H, W = self.cfg.H, self.cfg.W
         self.Hc, self.Wc = self.cfg.chroma_dims
@@ -158,7 +168,7 @@ class DeviceStreamDecoder:
         self.dtype = np.uint8 if self.cfg.bitdepth == 8 else np.uint16
         self.n_host_frames = 0         # frames reconstructed by numpy
         self.n_hybrid_frames = 0       # frames of the hybrid device path
-        self.pack_seconds = 0.0        # host clock spent packing plans
+        self.pack_seconds = 0.0        # seconds of this decoder's pack spans
         self.n_pipelined_frames = 0    # frames decode_all_pipelined ran
 
     def _set_cfg(self, cfg):
@@ -243,9 +253,11 @@ class DeviceStreamDecoder:
         f = self.frames[fid]
         if f["host"] is None:
             s = self.slot_of[fid]
-            f["host"] = [p[s].cpu().numpy().astype(self.dtype) for p in
-                         ((self.dy,) if self.cfg.mono
-                          else (self.dy, self.dcb, self.dcr))]
+            with telemetry.span("download") as sp:
+                f["host"] = [p[s].cpu().numpy().astype(self.dtype) for p in
+                             ((self.dy,) if self.cfg.mono
+                              else (self.dy, self.dcb, self.dcr))]
+                sp.n = sum(p.nbytes for p in f["host"])
             if self.cfg.mono:                 # no chroma planes: (0, 0)
                 f["host"] += [np.zeros((0, 0), self.dtype)] * 2
         return f["host"]
@@ -298,9 +310,9 @@ class DeviceStreamDecoder:
         return not (frame_has_intra(plan) and not self.cfg.intra)
 
     def _pack(self, plan, cfg, fid_slot):
-        t0 = time.perf_counter()
-        t = _host(pack_frame, plan, cfg, fid_slot)
-        self.pack_seconds += time.perf_counter() - t0
+        with telemetry.span("pack", 1) as sp:
+            t = _host(pack_frame, plan, cfg, fid_slot)
+        self.pack_seconds += sp.seconds
         return t
 
     def _run_fast(self, plan, out_slot):
@@ -353,14 +365,17 @@ class DeviceStreamDecoder:
         return run
 
     def _run_fast_scan(self, run):
-        t0 = time.perf_counter()
-        stacked = {k: np.stack([t[k] for (_, _, _, t) in run])
-                   for k in run[0][3]}
-        meta, totals = blob_meta(stacked)
-        bufs = pack_blob(stacked, meta, totals)
-        self.pack_seconds += time.perf_counter() - t0
-        ts = unpack_blob({k: to_tensor(v, self.device)
-                          for k, v in bufs.items()}, meta)
+        # the run's frames were packed (and counted) one by one
+        with telemetry.span("pack") as sp:
+            stacked = {k: np.stack([t[k] for (_, _, _, t) in run])
+                       for k in run[0][3]}
+            meta, totals = blob_meta(stacked)
+            bufs = pack_blob(stacked, meta, totals)
+        self.pack_seconds += sp.seconds
+        with telemetry.span("upload",
+                            sum(v.nbytes for v in bufs.values())):
+            ts = unpack_blob({k: to_tensor(v, self.device)
+                              for k, v in bufs.items()}, meta)
         self._decode_batch(ts, [(plan, s) for plan, _, s, _ in run],
                            self.cfg_scan)
 
@@ -521,30 +536,31 @@ class DeviceStreamDecoder:
                     got = ring.acquire(totals)
                     if got is None:
                         return
-                    t0 = time.perf_counter()
-                    packed = pack_blob_native(
-                        plans, cfg, slot_map, meta, totals,
-                        out={dt: v.numpy() for dt, v in got[1].items()})
-                    self.pack_seconds += time.perf_counter() - t0
+                    with telemetry.span("pack", len(plans)) as sp:
+                        packed = pack_blob_native(
+                            plans, cfg, slot_map, meta, totals,
+                            out={dt: v.numpy() for dt, v in got[1].items()})
+                    self.pack_seconds += sp.seconds
                     if packed is not None:
                         done.put((cfg, meta, *got, items))
                         continue
                     ring.release(got[0])
-                t0 = time.perf_counter()
-                frames = list(ex.map(
-                    lambda p: pack_frame(p, cfg, slot_map), plans))
-                stacked = {k: np.stack([t[k] for t in frames])
-                           for k in frames[0]}
-                meta, totals = blob_meta(stacked)
+                with telemetry.span("pack", len(plans)) as sp:
+                    frames = list(ex.map(
+                        lambda p: pack_frame(p, cfg, slot_map), plans))
+                    stacked = {k: np.stack([t[k] for t in frames])
+                               for k in frames[0]}
+                    meta, totals = blob_meta(stacked)
                 meta_cache[key] = (meta, totals)
-                self.pack_seconds += time.perf_counter() - t0
+                self.pack_seconds += sp.seconds
                 got = ring.acquire(totals)
                 if got is None:
                     return
-                t0 = time.perf_counter()
-                pack_blob(stacked, meta, totals,
-                          out={dt: v.numpy() for dt, v in got[1].items()})
-                self.pack_seconds += time.perf_counter() - t0
+                # the same frames again: n counts them once
+                with telemetry.span("pack") as sp:
+                    pack_blob(stacked, meta, totals,
+                              out={dt: v.numpy() for dt, v in got[1].items()})
+                self.pack_seconds += sp.seconds
                 done.put((cfg, meta, *got, items))
 
 
@@ -604,7 +620,8 @@ class _StagingRing:
             self.release(i)
             return out
         compute = torch.cuda.current_stream(self.device)
-        with torch.cuda.stream(self.stream):
+        with telemetry.span("upload", sum(v.nbytes for v in views.values())), \
+                torch.cuda.stream(self.stream):
             out = {dt: v.to(self.device, non_blocking=True)
                    for dt, v in views.items()}
             ev = torch.cuda.Event()
@@ -689,10 +706,10 @@ class ShardedStreamDecoder(DeviceStreamDecoder):
             super()._run_fast(plan, out_slot)
             self._replicate(out_slot)
             return
-        t0 = time.perf_counter()
-        tsh, trep, x0w = split_strips(plan, self.cfg_scan, self.slot_of,
-                                      self.ndev)
-        self.pack_seconds += time.perf_counter() - t0
+        with telemetry.span("pack", 1) as sp:
+            tsh, trep, x0w = split_strips(plan, self.cfg_scan, self.slot_of,
+                                          self.ndev)
+        self.pack_seconds += sp.seconds
         decode_frame_tiles(self.replicas, self.devices, tsh, trep, x0w,
                            out_slot, self.cfg_scan)
         # the strips write only the DPB: bring the persistent MC tables

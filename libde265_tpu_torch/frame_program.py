@@ -8,12 +8,12 @@ scan -> deblocking (planned on the device) -> SAO -> DPB and tile-table
 insert. The residual stage carries transform-skip, transquant bypass and
 scaling lists, and PCM blocks are pasted before the intra scan. The DPB
 stacks and tables are updated in place (the JAX program donates them, so
-in-place update is the same dataflow). Each stage runs
-under a torch.profiler.record_function range named after it (grids, mc,
-residual, pcm, intra, deblock, sao, insert), which profile_frames.py
-reads. `stages` leaves stages out by not launching them (the JAX
-program's profiling ablation, tools/profile_frame_stages.py); every
-decoder runs the full default.
+in-place update is the same dataflow). A frame runs in the telemetry
+span "frame" (telemetry.py), and each stage in a span inside it named
+after the stage (grids, mc, residual, pcm, intra, deblock, sao,
+insert); profile_frames.py reads their profiler ranges. `stages` leaves
+stages out by not launching them (the JAX program's profiling ablation,
+tools/profile_frame_stages.py); every decoder runs the full default.
 
 The port runs every chroma format (monochrome, 4:2:0, 4:2:2, 4:4:4) at
 8 to 12 bits (uint8 tile tables at 8 bits, int16 above, as the JAX
@@ -30,8 +30,8 @@ not carry yet.
 """
 import numpy as np
 import torch
-from torch.profiler import record_function
 
+from . import telemetry
 from .intra_fused import intra_stage_scan, unnibble, unpack_bits
 from .ops.deblock import deblock_luma_pass, deblock_chroma_pass
 from .ops.filter_plan import plan_deblock_device
@@ -186,9 +186,14 @@ def decode_frame_device(dy, dcb, dcr, ty, tc, t, out_slot,
     launched and its output is what the JAX program's ablation gives
     (zero prediction without "mc", no residual or PCM without "res", no
     table update without "tables"; the DPB insert always runs)."""
+    with telemetry.span("frame"):
+        return _decode_frame(dy, dcb, dcr, ty, tc, t, out_slot, cfg, stages)
+
+
+def _decode_frame(dy, dcb, dcr, ty, tc, t, out_slot, cfg, stages):
     H, W = cfg.H, cfg.W
     Hc, Wc = cfg.chroma_dims
-    with record_function("grids"):
+    with telemetry.span("grids"):
         t = frame_grids(t, cfg)
     if cfg.skip_mc or "mc" not in stages:
         z = [torch.zeros(s, dtype=torch.int32, device=dy.device)
@@ -196,7 +201,7 @@ def decode_frame_device(dy, dcb, dcr, ty, tc, t, out_slot,
         return _finish_frame(dy, dcb, dcr, ty, tc, t, out_slot, cfg,
                              stages, *z)
 
-    with record_function("mc"):
+    with telemetry.span("mc"):
         Y, Cb, Cr = _motion_compensate(ty, tc, dcb, dcr, t, cfg,
                                        "mc_luma_only" in stages)
     return _finish_frame(dy, dcb, dcr, ty, tc, t, out_slot, cfg, stages,
@@ -338,7 +343,7 @@ def _finish_frame(dy, dcb, dcr, ty, tc, t, out_slot, cfg, stages, Y, Cb,
 
     # ---- inter residuals
     if "res" in stages:
-        with record_function("residual"):
+        with telemetry.span("residual"):
             planes = [Y, Cb, Cr]
             for bi_, (cidx, log2, K) in enumerate(cfg.buckets):
                 c = _bucket_coeffs(t, cfg, bi_, cidx, log2, K)
@@ -361,19 +366,19 @@ def _finish_frame(dy, dcb, dcr, ty, tc, t, out_slot, cfg, stages, Y, Cb,
     # TUs). The pm grid masked MC out of PCM blocks and no TU scatters
     # there, so the add lands on zeros: an overwrite.
     if cfg.pcm and "res" in stages:
-        with record_function("pcm"):
+        with telemetry.span("pcm"):
             Y, Cb, Cr = _paste_pcm(Y, Cb, Cr, t, cfg, maxv)
     Y, Cb, Cr = (p.contiguous() for p in (Y, Cb, Cr))
 
     # ---- intra (reads post-inter-residual neighbours, the reference's
     # in-loop order: decode_TU slice.cc:3424)
     if cfg.intra and "intra" in stages:
-        with record_function("intra"):
+        with telemetry.span("intra"):
             Y, Cb, Cr = intra_stage_scan(Y, Cb, Cr, t, cfg)
 
     # ---- deblock (metadata derived on the device)
     if "dbk" in stages:
-        with record_function("deblock"):
+        with telemetry.span("deblock"):
             lm, cmeta = plan_deblock_device(t, cfg.fcfg)
             for vi, vertical in enumerate((True, False)):
                 Y = deblock_luma_pass(Y, *lm[vi], vertical=vertical,
@@ -394,13 +399,13 @@ def _finish_frame(dy, dcb, dcr, ty, tc, t, out_slot, cfg, stages, Y, Cb,
     # ---- SAO (K3 from the per-CTB parameters, one launch per plane;
     # monochrome chroma dummies pass through)
     if cfg.sao_enabled and "sao" in stages:
-        with record_function("sao"):
+        with telemetry.span("sao"):
             Y, Cb, Cr = (P if ci and cfg.mono
                          else sao_ctb(P, t, cfg.scfg, ci, bitdepth=bd)
                          for ci, P in enumerate((Y, Cb, Cr)))
 
     # ---- DPB + tile-table insert (K1)
-    with record_function("insert"):
+    with telemetry.span("insert"):
         # one converting copy a plane (an int16 temporary would cost a
         # device-to-device memcpy more)
         dy[out_slot].copy_(Y)

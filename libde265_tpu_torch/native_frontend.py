@@ -16,7 +16,7 @@ import os
 
 import numpy as np
 
-from . import _build
+from . import _build, telemetry
 from .plan import FramePlan, TURecord, PURecord, MODE_INTRA, MODE_INTER
 
 _LIB = None
@@ -56,12 +56,20 @@ class NativeFrontend:
 
     def parse(self, stream: bytes, sps_map, pps_map):
         """sps_map/pps_map: python-parsed parameter sets (the native side has
-        its own; python ones carry derived values for the backend)."""
-        n = self.lib.fe_push_stream(self.h, stream, len(stream))
-        if n < 0:
-            raise ValueError("native front-end error: " +
-                             self.lib.fe_error(C.c_void_p(self.h)).decode())
-        return self.extract_all(n, sps_map, pps_map)
+        its own; python ones carry derived values for the backend).
+        Spans: parse (n: frames), with parse.slices (the C++ parse) and
+        parse.extract (the FramePlans) inside."""
+        with telemetry.span("parse") as sp:
+            with telemetry.span("parse.slices", len(stream)):
+                n = self.lib.fe_push_stream(self.h, stream, len(stream))
+            if n < 0:
+                raise ValueError(
+                    "native front-end error: "
+                    + self.lib.fe_error(C.c_void_p(self.h)).decode())
+            with telemetry.span("parse.extract", n):
+                plans = self.extract_all(n, sps_map, pps_map)
+            sp.n = n
+            return plans
 
     def extract_all(self, n, sps_map, pps_map):
         """Materialize n parsed frames as FramePlans. The per-frame

@@ -26,9 +26,10 @@ copies between the devices of the list, in one process:
   reassembly: each strip's valid columns written into the output slot
       of every DPB replica (the JAX all_gather into the replicated DPB).
 
-Each step runs under a torch.profiler.record_function range (tables,
-upload, mc, residual, halo, deblock, sao, assemble), which
-profile_frames.py reads.
+A frame runs in the telemetry span "frame" (telemetry.py), and each
+step in a span inside it (tables, mc, residual, halo, deblock, sao,
+assemble; a strip's inputs in convert.plan_from_numpy's "upload"), whose
+profiler ranges profile_frames.py reads.
 
 Like the JAX strip program, this one writes only the DPB replicas;
 device_stream.ShardedStreamDecoder refreshes the persistent MC tile
@@ -38,7 +39,8 @@ import contextlib
 
 import numpy as np
 import torch
-from torch.profiler import record_function
+
+from .. import telemetry
 
 from ..convert import plan_from_numpy
 from ..frame_program import _scatter_residual_slots, mc_inputs
@@ -206,12 +208,12 @@ def _strip_recon(t, tables, x0, cfg, Ws):
     per-frame tables, then the inter residuals. Returns int32 (Y, Cb, Cr)
     of (H, Ws) / (H/2, Ws/2)."""
     bd = cfg.bitdepth
-    with record_function("mc"):
+    with telemetry.span("mc"):
         args = ((cfg.H, cfg.W), *strip_mc_inputs(t, cfg, x0, Ws), bd,
                 cfg.has_bi)
         Y, = mc_predict(tables[0], *args, strip=Ws, x0=x0)
         Cb, Cr = mc_predict(tables[1], *args, strip=Ws, x0=x0)
-    with record_function("residual"):
+    with telemetry.span("residual"):
         planes = [Y, Cb, Cr]
         for cidx, log2, K in cfg.buckets:
             res = residual_batch(t[f"rc_{cidx}_{log2}"].to(torch.int32),
@@ -227,7 +229,7 @@ def _strip_filter(t, Ye, Cbe, Cre, x0, cfg, Ws):
     to its (H, Ws) / (H/2, Ws/2) columns."""
     bd = cfg.bitdepth
     xoff = x0 - HALO_Y
-    with record_function("deblock"):
+    with telemetry.span("deblock"):
         lm, cm = plan_deblock_device(t, cfg.fcfg, xoff)
         for vi, vertical in enumerate((True, False)):
             Ye = deblock_luma_pass(Ye, *lm[vi], vertical=vertical,
@@ -238,7 +240,7 @@ def _strip_filter(t, Ye, Cbe, Cre, x0, cfg, Ws):
             Cre = deblock_chroma_pass(Cre, act[1], tc[1], p_off, q_off,
                                       vertical=vertical, bitdepth=bd)
     if cfg.sao_enabled:
-        with record_function("sao"):
+        with telemetry.span("sao"):
             Ye, Cbe, Cre = (sao_ctb(P, t, cfg.scfg, ci, xoff, bitdepth=bd)
                             for ci, P in enumerate((Ye, Cbe, Cre)))
     return (Ye[:, HALO_Y:HALO_Y + Ws], Cbe[:, HALO_C:HALO_C + Ws // 2],
@@ -253,13 +255,18 @@ def decode_frame_tiles(dpbs, devices, tsh, trep, x0w, out_slot, cfg):
     output (numpy); strip d runs on devices[d]. The strip width Ws is
     the one split_strips cut the grids at (strip_geometry's widest
     column in whole CTBs)."""
+    with telemetry.span("frame"):
+        return _decode_strips(dpbs, devices, tsh, trep, x0w, out_slot, cfg)
+
+
+def _decode_strips(dpbs, devices, tsh, trep, x0w, out_slot, cfg):
     assert len(devices) == x0w.shape[0]
     Ws = (tsh["pm"].shape[2] - 2 * GB) * 4
     wds = [int(w) for w in x0w[:, 1]]
     # replicated inputs and the K5 tables, once per distinct device
     reps, tables = {}, {}
     for dev in dict.fromkeys(devices):
-        with _on(dev), record_function("tables"):
+        with _on(dev), telemetry.span("tables"):
             reps[dev] = plan_from_numpy(trep, dev)
             sel = reps[dev]["sel_slots"].to(torch.int64)
             dy, dcb, dcr = dpbs[dev]
@@ -269,13 +276,12 @@ def decode_frame_tiles(dpbs, devices, tsh, trep, x0w, out_slot, cfg):
     ts, pre = [], []
     for d, dev in enumerate(devices):
         with _on(dev):
-            with record_function("upload"):
-                t = plan_from_numpy({k: v[d] for k, v in tsh.items()}, dev)
+            t = plan_from_numpy({k: v[d] for k, v in tsh.items()}, dev)
             t.update(reps[dev])
             ts.append(t)
             pre.append(_strip_recon(t, tables[dev], int(x0w[d, 0]), cfg,
                                     Ws))
-    with record_function("halo"):
+    with telemetry.span("halo"):
         ext = [_halo_concat([p[i] for p in pre], h, [w // s for w in wds])
                for i, (h, s) in enumerate(((HALO_Y, 1), (HALO_C, 2),
                                            (HALO_C, 2)))]
@@ -286,7 +292,7 @@ def decode_frame_tiles(dpbs, devices, tsh, trep, x0w, out_slot, cfg):
                                       ext[2][d], int(x0w[d, 0]), cfg, Ws))
     # width-aware reassembly into the out slot of every replica
     for dev, planes in dpbs.items():
-        with _on(dev), record_function("assemble"):
+        with _on(dev), telemetry.span("assemble"):
             for (x0, w), strip in zip(x0w.tolist(), outs):
                 for ci, (dst, src) in enumerate(zip(planes, strip)):
                     s = 1 if ci == 0 else 2

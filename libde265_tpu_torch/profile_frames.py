@@ -8,8 +8,10 @@ For each frame kind it prints the wall milliseconds per frame (CUDA
 events, profiler off and on), the device busy time (union of kernel, memcpy and
 memset intervals) and its share of the window, the kernel launches per
 frame, the device span, kernel time and kernel launches of each
-frame-program stage (the record_function ranges of frame_program.py),
-and the top kernels; the Chrome traces go to OUT_DIR/trace_<kind>.json.
+frame-program stage (the profiler ranges "de265.<stage>" of the
+telemetry spans of frame_program.py), the device's idle time by the
+innermost "de265.*" host range that holds it (telemetry.py), and the
+top kernels; the Chrome traces go to OUT_DIR/trace_<kind>.json.
 
     python -m libde265_tpu_torch.profile_frames --tiles [STREAM] [OUT_DIR]
 
@@ -27,6 +29,7 @@ logs it beside each IDR's time).
 import json
 import os
 import sys
+from bisect import bisect_left, bisect_right
 from collections import defaultdict
 from dataclasses import replace
 
@@ -40,6 +43,7 @@ from .device_stream import DeviceStreamDecoder, ShardedStreamDecoder
 from .frame_program import decode_frame_device
 from .packing import pack_frame
 from .parallel.tile_shard import decode_frame_tiles, split_strips
+from .telemetry import PREFIX
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -54,10 +58,58 @@ def _union(iv):
     return total
 
 
+def _merged(iv):
+    """(start, end) intervals merged into disjoint ones, in order."""
+    out = []
+    for a, b in sorted(iv):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def idle_by_range(ev, dev):
+    """{range: ms}: the device's idle time (outside the intervals `dev`,
+    (start, end) in us) from the trace's first event to the end of its
+    last, cut where a host range "de265.<name>" begins or ends, each
+    piece put down to the innermost range that holds it (the one that
+    started last), "none" where none does."""
+    if not ev:
+        return {}
+    w0 = min(e["ts"] for e in ev)
+    w1 = max(e["ts"] + e["dur"] for e in ev)
+    busy = [[w0, w0]] + _merged(dev) + [[w1, w1]]
+    spans = sorted(((e["ts"], e["ts"] + e["dur"], e["name"][len(PREFIX):])
+                    for e in ev if e.get("cat") == "user_annotation"
+                    and e.get("name", "").startswith(PREFIX)),
+                   key=lambda x: (x[0], -x[1]))
+    starts = [a for a, _, _ in spans]
+    cuts = sorted({x for a, b, _ in spans for x in (a, b)})
+    idle = defaultdict(float)
+    for (_, a), (b, _) in zip(busy, busy[1:]):
+        pts = [a] + cuts[bisect_right(cuts, a):bisect_left(cuts, b)] + [b]
+        for x, y in zip(pts, pts[1:]):
+            idle[_innermost(spans, starts, (x + y) / 2)] += (y - x) / 1e3
+    return dict(idle)
+
+
+def _innermost(spans, starts, t):
+    i = bisect_right(starts, t) - 1
+    while i >= 0:
+        a, b, name = spans[i]
+        if a <= t <= b:
+            return name
+        i -= 1
+    return "none"
+
+
 def summarize(trace_path, reps):
     """(busy ms/frame, kernels/frame, {stage: [span ms, kernel ms,
-    kernels]}, [(kernel, ms)]) per frame from an exported Chrome trace of
-    `reps` frames."""
+    kernels]}, [(kernel, ms)], {host range: idle ms}) per frame from an
+    exported Chrome trace of `reps` frames. A stage is a range on the
+    device's timeline (the "de265." prefix dropped); the idle time is
+    idle_by_range's."""
     with open(trace_path) as f:
         ev = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
     dev = [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in ev
@@ -70,7 +122,9 @@ def summarize(trace_path, reps):
         if e.get("cat") != "gpu_user_annotation":
             continue
         a, b = e["ts"], e["ts"] + e["dur"]
-        st = stages[e["name"]]
+        name = e["name"]
+        st = stages[name[len(PREFIX):] if name.startswith(PREFIX)
+                    else name]
         st[0] += e["dur"] / 1e3 / reps
         st[1] += _union([(x, y) for x, y, _ in dev
                          if x >= a and y <= b]) / 1e3 / reps
@@ -79,12 +133,14 @@ def summarize(trace_path, reps):
     for a, b, n in dev:
         by_name[n] += (b - a) / 1e3 / reps
     top = sorted(by_name.items(), key=lambda kv: -kv[1])
-    return busy, len(kern) / reps, dict(stages), top
+    idle = {k: v / reps for k, v in
+            idle_by_range(ev, [(a, b) for a, b, _ in dev]).items()}
+    return busy, len(kern) / reps, dict(stages), top, idle
 
 
 def report(label, trace_path, reps, wall=None):
     """Print the summary of one exported trace."""
-    busy, nk, stages, top = summarize(trace_path, reps)
+    busy, nk, stages, top, idle = summarize(trace_path, reps)
     share = f" ({100 * busy / wall:.1f}% of the profiled window)" \
         if wall else ""
     print(f"{label}: device busy {busy:.3f} ms{share}; {nk:.1f} kernel "
@@ -92,6 +148,8 @@ def report(label, trace_path, reps, wall=None):
     for name, (span, kms, kn) in stages.items():
         print(f"  stage {name:9s} span {span:8.3f} ms, device busy "
               f"{kms:8.3f} ms, {kn:7.1f} kernels")
+    for name, ms in sorted(idle.items(), key=lambda kv: -kv[1]):
+        print(f"  idle {ms:8.3f} ms while the host is in {name}")
     for name, ms in top[:12]:
         print(f"  {ms:8.3f} ms  {name[:100]}")
 

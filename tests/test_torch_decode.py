@@ -365,8 +365,10 @@ def test_frontend_copy_matches_jax_package(name):
 
 def test_profile_summary_counts(tmp_path):
     """profile_frames.summarize on a made-up trace of 2 frames: device
-    busy is the union of kernel/memcpy intervals, and each stage's span,
-    busy time and kernel count are per frame."""
+    busy is the union of kernel/memcpy intervals, each stage's span,
+    busy time and kernel count are per frame (a "de265." range counts
+    under its stage's name), and each idle gap goes to the innermost
+    "de265.*" host range that holds it."""
     from libde265_tpu_torch.profile_frames import summarize
     ev = [{"ph": "X", "cat": "kernel", "name": "k", "ts": 0, "dur": 100},
           {"ph": "X", "cat": "kernel", "name": "k", "ts": 50, "dur": 100},
@@ -375,14 +377,22 @@ def test_profile_summary_counts(tmp_path):
           {"ph": "X", "cat": "kernel", "name": "j", "ts": 1000, "dur": 400},
           {"ph": "X", "cat": "gpu_user_annotation", "name": "mc", "ts": 0,
            "dur": 500},
-          {"ph": "X", "cat": "gpu_user_annotation", "name": "mc",
-           "ts": 1000, "dur": 500}]
+          {"ph": "X", "cat": "gpu_user_annotation", "name": "de265.mc",
+           "ts": 1000, "dur": 500},
+          {"ph": "X", "cat": "user_annotation", "name": "de265.frame",
+           "ts": 100, "dur": 900},
+          {"ph": "X", "cat": "user_annotation", "name": "de265.sync",
+           "ts": 500, "dur": 300}]
     path = tmp_path / "trace.json"
     path.write_text(json.dumps({"traceEvents": ev}))
-    busy, nk, stages, top = summarize(str(path), 2)
+    busy, nk, stages, top, idle = summarize(str(path), 2)
     assert busy == pytest.approx(0.325)          # (150 + 100 + 400) us / 2
     assert nk == 1.5
     span, kms, kn = stages["mc"]
     assert span == pytest.approx(0.5) and kms == pytest.approx(0.325)
     assert kn == 1.5
     assert top[0][0] == "j"
+    # gaps 150-300, 400-1000 and 1400-1500 us (the trace ends with the
+    # stage range): sync holds 500-800, frame the rest of the first two
+    assert idle == pytest.approx({"frame": 0.225, "sync": 0.15,
+                                  "none": 0.05})
