@@ -43,11 +43,23 @@ card.
      K2 in strip form: the first P frame of tests/data/
         p_tiles4_1080p_mv.bin, tile column 1 (x0 = 448, a 448-pixel
         column in a 512-pixel strip), over seeded random tables;
+     K6 deblocking (two launches, in place) against deblock_frame_plain
+        on the real grids and pre-deblocking planes its callers see while
+        streams decode on the card (tests/test_torch_cuda.py _dbk_inputs):
+        the ld4k_light IDR and first P picture, the first ldb4k_main10 B
+        picture, the gop1080p IDR and strip 1 of p_tiles4_1080p_mv's
+        first P frame (xoff 432), each timed as 20 calls replayed from a
+        CUDA graph (in place on one copy of the planes) beside its bound
+        and the plain route's time; then, exact only, the first calls of
+        4:2:2, 4:4:4, monochrome, pcm, pcm with its loop filter off,
+        bypass, tile-boundary-off, per-slice-disabled and hybrid vectors,
+        and the synthetic 8- to 12-bit cases (_dbk_case);
 4. decodes all 33 frames of tests/data/ld4k_light.bin (3840x2160) through
    libde265_tpu_torch.api.decode_stream_native(data, device="cuda") with
    the launch counters zeroed just before, and requires every frame's
    per-plane MD5 to match tests/data/manifest_big.json, no frame on the
-   numpy host path, and K1 = 66, K2 = 64, K3 = 99, K4 = 2 launches;
+   numpy host path, and K1 = 66, K2 = 64, K3 = 99, K4 = 2, K6 = 66
+   launches;
 5. decodes the weighted and bi-predicted streams p_wp, adv_b_wp_2ref,
    b_mv and b_mixed the same way (counters zeroed before each), each
    MD5-checked against its manifest, and requires K2 launches in each;
@@ -56,9 +68,9 @@ card.
    ["cuda:0"] * ncols): every strip on this card), counters zeroed before
    each: every frame MD5-equal to its manifest, no frame on the host
    path, every P frame decoded as strips, and the exact launch counts the
-   code gives (K5 2 per strip frame, K2 2 and K3 3 per strip, K1 2 per
-   frame, strip frames included, K3 3 per frame of the single-device
-   program, K4 >= 1); with two
+   code gives (K5 2 per strip frame, K2 2, K3 3 and K6 2 per strip, K1 2
+   per frame, strip frames included, K3 3 and K6 2 per frame of the
+   single-device program, K4 >= 1); with two
    cards, p_tiles2_mv again across cuda:0 and cuda:1;
 7. times the 4K IDR and one 4K P frame through the frame program, and
    the 1080p tile stream's decode (wall) and one of its P frames through
@@ -270,6 +282,9 @@ GOP_STREAM = "gop1080p"
 # 3840x2160 10-bit 4:2:0 (HEVC Main 10), IDR + 8 P frames
 # (tools/gen_main10_4k_stream.py; golden in manifest_torch.json)
 MAIN10 = "ld4k_main10"
+# 3840x2160 10-bit 4:2:0 low-delay B (the ldb4k_main10 benchmark cell's
+# stream)
+LDB = "ldb4k_main10"
 # 3840x2160 10-bit 4:2:2 (HEVC Main 4:2:2 10), IDR + 8 P frames
 # (tools/gen_main10_4k_stream.py --chroma-format 422)
 S422 = "ld4k_422_10b"
@@ -818,6 +833,94 @@ def check_k2_strip(dev, rng, plans):
             f"{int(a[-1].sum())} inter blocks of {a[-1].numel()}): equal; "
             f"kernel {ms:.4f} ms, plain {pms:.4f} ms, bound {bnd[0]:.4f} "
             f"ms ({bnd[1]})")
+    return res
+
+
+def k6_bound(planes, g, fcfg):
+    """K6's bound from this call's inputs: in each direction every luma
+    sample read once and 6 of 8 written (the p2..q2 of each edge
+    window), 4 of 8 chroma samples read and 2 of 8 written (p1..q1 read,
+    p0 and q0 written), the grids read once; about 16 int32 operations a
+    luma sample and direction."""
+    from libde265_tpu_torch.ops.kernels.deblock import GRIDS
+    ny = planes[0].numel()
+    nc = sum(P.numel() for P in planes[1:]) if fcfg[2] else 0
+    grids = sum(g[k].nbytes for k in GRIDS)
+    return bound(2 * 4 * (ny * (1 + 6 / 8) + nc * (4 / 8 + 2 / 8))
+                 + grids, 2 * 16 * ny)
+
+
+def check_k6(dev):
+    """K6 (deblock_frame, two launches, in place) against
+    deblock_frame_plain on copies of the same card tensors, every plane
+    exact: the real inputs of its callers while streams decode on the
+    card, the big pictures timed (20 in-place calls on one copy of the
+    planes replayed from a CUDA graph: from the second call on they
+    filter what the first filtered) beside the bound and the plain
+    route's time (CUDA events); then small vectors and the synthetic
+    cases, exact only. Returns rows (what, max_abs_err, ms, plain_ms,
+    bound) of the timed cases."""
+    import torch
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from test_torch_cuda import DBK_CASES, _dbk_case, _dbk_inputs
+    from libde265_tpu_torch.ops.kernels import deblock as k
+    res = []
+
+    def one(what, planes, g, fcfg, bd, xoff, timed):
+        want = k.deblock_frame_plain(*(P.clone() for P in planes), g, fcfg,
+                                     bd, xoff)
+        got = [P.clone() for P in planes]
+        n = k.deblock_frame.launches
+        k.deblock_frame(*got, g, fcfg, bd, xoff)
+        torch.cuda.synchronize()
+        if k.deblock_frame.launches != n + 2:
+            fail(f"K6 {what}: {k.deblock_frame.launches - n} launches, "
+                 f"want 2")
+        npl = 3 if fcfg[2] else 1
+        require_equal(f"K6 {what}", got[:npl], want[:npl])
+        changed = [int((w != P).sum()) for w, P in zip(want, planes[:npl])]
+        if not timed:
+            return
+        err = max_abs_err(got[:npl], want[:npl])
+        ms, _ = graph_ms(lambda: k.deblock_frame(*got, g, fcfg, bd, xoff),
+                         20)
+        pms = cuda_time(lambda: k.deblock_frame_plain(*planes, g, fcfg, bd,
+                                                      xoff), 3)
+        bnd = k6_bound(planes, g, fcfg)
+        res.append((what, err, ms, pms, bnd))
+        log(f"K6 {what} {tuple(planes[0].shape)} ({bd} bits, xoff {xoff}, "
+            f"samples changed {changed}): equal; kernel {ms:.4f} ms, plain "
+            f"{pms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
+
+    for name, picks, kw, what in (
+            (STREAM, (("frame", 0), ("frame", 1)), {}, ("IDR", "P")),
+            (LDB, (("frame", 1),), {}, ("B",)),
+            (GOP_STREAM, (("frame", 0),), {}, ("IDR",)),
+            (TILE_STREAM, (("strip", 1),),
+             {"tile_devices": ["cuda:0"] * 4}, ("P frame strip 1",))):
+        got = _dbk_inputs(name, picks, **kw)
+        for key, w in zip(picks, what):
+            one(f"{name} {w}", *got[key], timed=True)
+        del got
+        torch.cuda.empty_cache()
+    small = 0
+    for name, kw in (("rext_422_filters", {}), ("rext_444_filters", {}),
+                     ("rext_mono_filters", {}), ("p_pcm", {}),
+                     ("p_pcm_nolf", {}), ("p_tqbypass", {}),
+                     ("p_tiles_nolf", {}),
+                     ("p_tiles2_mv_nolf", {"tile_devices": ["cuda:0"] * 2}),
+                     ("p_mixedlf", {}), ("rxt_cqo", {})):
+        for key, args in _dbk_inputs(name, 3, **kw).items():
+            one(f"{name} {key}", *args, timed=False)
+            small += 1
+    for case in DBK_CASES:
+        planes, g, fcfg = _dbk_case(*case)
+        one(f"synthetic {case}",
+            [torch.as_tensor(x, device=dev) for x in planes],
+            {kk: torch.as_tensor(v, device=dev) for kk, v in g.items()},
+            fcfg, case[4], case[5], timed=False)
+    log(f"K6: {small} calls of small vectors and {len(DBK_CASES)} "
+        f"synthetic cases equal to deblock_frame_plain")
     return res
 
 
@@ -2273,6 +2376,8 @@ def main():
     k5 = check_k5(dev, rng, tile_plans)
     k2s = check_k2_strip(dev, rng, tile_plans)
     torch.cuda.empty_cache()
+    k6 = check_k6(dev)
+    torch.cuda.empty_cache()
 
     # ---- the main path, through the user's entry point
     from libde265_tpu_torch.api import decode_stream_native
@@ -2281,20 +2386,23 @@ def main():
     from libde265_tpu_torch.ops.kernels.mc_tables import (build_tile_tables,
                                                           update_tile_table)
     from libde265_tpu_torch.ops.kernels.sao_filter import sao_ctb
+    from libde265_tpu_torch.ops.kernels.deblock import deblock_frame
     counters = (update_tile_table, mc_predict, sao_ctb, intra_scan,
                 build_tile_tables)
 
     def decode(name, data, manifest, **kw):
         """Decode on the card with every launch count zeroed just before;
-        MD5-check every frame. Returns (pics, stats, launches, wall s)."""
+        MD5-check every frame. Returns (pics, stats, launches, wall s);
+        K6's launches are the stats' "k6_launches"."""
         torch.cuda.synchronize()
-        for f in counters:
+        for f in counters + (deblock_frame,):
             f.launches = 0
         st = {}
         t0 = time.perf_counter()
         pics = decode_stream_native(data, device="cuda", stats=st, **kw)
         wall = time.perf_counter() - t0
         launches = [f.launches for f in counters]
+        st["k6_launches"] = deblock_frame.launches
         with open(os.path.join(DATA, manifest)) as f:
             man = json.load(f)[name]
         if len(pics) != man["frames"]:
@@ -2314,6 +2422,7 @@ def main():
         return pics, st, launches, wall
 
     pics, st, launches, wall = decode(STREAM, data, "manifest_big.json")
+    launches6 = st["k6_launches"]
     wall4 = wall                   # later phases reuse the name
     log(f"decode: {len(pics)} frames {pics[0].width}x{pics[0].height} "
         f"MD5-equal to manifest_big.json; n_host_frames "
@@ -2326,11 +2435,13 @@ def main():
         f"wall {wall:.3f} s = {nfr / wall:.2f} fps, device decode "
         f"{nfr / st['decode_s']:.2f} fps")
     log(f"launches on the main path: K1 {launches[0]}, K2 {launches[1]}, "
-        f"K3 {launches[2]}, K4 {launches[3]}")
+        f"K3 {launches[2]}, K4 {launches[3]}, K6 {st['k6_launches']}")
     if launches[0] != 2 * nfr or launches[1] != 2 * (nfr - 1) \
-            or launches[2] != 3 * nfr or launches[3] != 2:
-        fail(f"kernel launches {launches}, want K1 {2 * nfr}, K2 "
-             f"{2 * (nfr - 1)}, K3 {3 * nfr}, K4 2")
+            or launches[2] != 3 * nfr or launches[3] != 2 \
+            or st["k6_launches"] != 2 * nfr:
+        fail(f"kernel launches {launches}, K6 {st['k6_launches']}; want "
+             f"K1 {2 * nfr}, K2 {2 * (nfr - 1)}, K3 {3 * nfr}, K4 2, K6 "
+             f"{2 * nfr}")
 
     # ---- the weighted and bi-predicted paths
     for name, manifest in EXTRA.items():
@@ -2356,11 +2467,15 @@ def main():
         # up to date after the reassembly)
         want = [2 * nf, 2 * ndev * ns, sao * (nrep + ndev * ns), None,
                 2 * ns * len(set(devices))]
+        want6 = 2 * (nrep + ndev * ns)
         log(f"decode {name} ({ndev} tile columns on {devices}): {nf} "
             f"frames MD5-equal to {manifest}; n_host_frames "
             f"{s_['n_host_frames']}, strip frames {ns}; launches K1 "
-            f"{ln[0]}, K2 {ln[1]}, K3 {ln[2]}, K4 {ln[3]}, K5 {ln[4]}; "
-            f"wall {wall:.3f} s")
+            f"{ln[0]}, K2 {ln[1]}, K3 {ln[2]}, K4 {ln[3]}, K5 {ln[4]}, K6 "
+            f"{s_['k6_launches']}; wall {wall:.3f} s")
+        if s_["k6_launches"] != want6:
+            fail(f"{name}: K6 launched {s_['k6_launches']} times, want "
+                 f"{want6}")
         if s_["n_host_frames"] or ns != nf - 1:
             fail(f"{name}: {s_['n_host_frames']} host frames, {ns} of "
                  f"{nf - 1} P frames as strips")
@@ -2852,6 +2967,9 @@ def main():
         row(f"K5 tile-table build ({k5[0][0]}, luma + Cb|Cr, 2 launches)",
             "mc_tables.cu", "libde265_tpu/ops/pallas/mc_tables.py:138",
             tln[4], k5, k5[0]),
+        *(row(f"K6 deblocking ({r[0]}, Y, Cb and Cr, 2 launches)",
+              "deblock.cu", "none (XLA ops: libde265_tpu/ops/deblock_jax.py)",
+              launches6, k6, r) for r in k6),
         row(f"K2 MC, strip form ({TILE_STREAM} P frame strip 1 luma)",
             "mc_filter.cu", "libde265_tpu/ops/pallas/mc_filter.py:67",
             tln[1], k2s, k2s[0]),

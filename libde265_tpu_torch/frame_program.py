@@ -4,11 +4,11 @@ Counterpart of the device side of libde265_tpu/frame_program.py
 (`decode_frame_device`, `_finish_frame`, the tile-table helpers and the
 blob unpack): one inter or intra frame is decoded on the device from its
 packed plan tensors — tile-table MC -> residual batches -> intra band
-scan -> deblocking (planned on the device) -> SAO -> DPB and tile-table
-insert. The residual stage carries transform-skip, transquant bypass and
-scaling lists, and PCM blocks are pasted before the intra scan. The DPB
-stacks and tables are updated in place (the JAX program donates them, so
-in-place update is the same dataflow). A frame runs in the telemetry
+scan -> deblocking -> SAO -> DPB and tile-table insert. The residual
+stage carries transform-skip, transquant bypass and scaling lists, and
+PCM blocks are pasted before the intra scan. The DPB stacks and tables
+are updated in place (the JAX program donates them, so in-place update
+is the same dataflow). A frame runs in the telemetry
 span "frame" (telemetry.py), and each stage in a span inside it named
 after the stage (grids, mc, residual, pcm, intra, deblock, sao,
 insert); profile_frames.py reads their profiler ranges. `stages` leaves
@@ -20,7 +20,8 @@ The port runs every chroma format (monochrome, 4:2:0, 4:2:2, 4:4:4) at
 program's table_geom) with the kernels of the JAX use_pallas=True /
 pallas_taps=True branches: MC (K2, uni, bi and explicit weighted
 prediction) on every frame with prediction units, the tile-table update
-(K1) and SAO (K3) on every frame, the intra scan (K4) on intra TUs. At
+(K1), deblocking (K6, no JAX kernel: the JAX program's XLA ops) and SAO
+(K3) on every frame, the intra scan (K4) on intra TUs. At
 4:2:0 K1 and K2 cover luma and the [Cb|Cr] pair; in the other formats
 the tile table is luma's alone, 4:2:2 / 4:4:4 chroma prediction reads
 the chroma DPB stacks (ops/mc_chroma.py, plain torch as in the JAX
@@ -33,8 +34,7 @@ import torch
 
 from . import telemetry
 from .intra_fused import intra_stage_scan, unnibble, unpack_bits
-from .ops.deblock import deblock_luma_pass, deblock_chroma_pass
-from .ops.filter_plan import plan_deblock_device
+from .ops.kernels.deblock import deblock_frame
 from .ops.kernels.mc_filter import mc_predict
 from .ops.kernels.mc_tables import update_tile_table
 from .ops.kernels.sao_filter import sao_ctb
@@ -376,25 +376,12 @@ def _finish_frame(dy, dcb, dcr, ty, tc, t, out_slot, cfg, stages, Y, Cb,
         with telemetry.span("intra"):
             Y, Cb, Cr = intra_stage_scan(Y, Cb, Cr, t, cfg)
 
-    # ---- deblock (metadata derived on the device)
+    # ---- deblock (K6: two launches, in place; the span's n counts them)
     if "dbk" in stages:
-        with telemetry.span("deblock"):
-            lm, cmeta = plan_deblock_device(t, cfg.fcfg)
-            for vi, vertical in enumerate((True, False)):
-                Y = deblock_luma_pass(Y, *lm[vi], vertical=vertical,
-                                      bitdepth=bd)
-                if cmeta is None:                    # monochrome
-                    continue
-                # the maps are 4x4-luma-granular: chroma lines a map row
-                # by the along-edge subsampling
-                rep = 4 // (cfg.subh if vertical else cfg.subw)
-                act, tc_map, p_off, q_off = cmeta[vi]
-                Cb = deblock_chroma_pass(Cb, act[0], tc_map[0], p_off,
-                                         q_off, vertical=vertical,
-                                         bitdepth=bd, rep=rep)
-                Cr = deblock_chroma_pass(Cr, act[1], tc_map[1], p_off,
-                                         q_off, vertical=vertical,
-                                         bitdepth=bd, rep=rep)
+        with telemetry.span("deblock") as sp:
+            n = deblock_frame.launches
+            Y, Cb, Cr = deblock_frame(Y, Cb, Cr, t, cfg.fcfg, bd)
+            sp.n = deblock_frame.launches - n
 
     # ---- SAO (K3 from the per-CTB parameters, one launch per plane;
     # monochrome chroma dummies pass through)

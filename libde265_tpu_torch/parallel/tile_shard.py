@@ -19,10 +19,9 @@ copies between the devices of the list, in one process:
   halo exchange, once every strip has its pre-filter pixels: 16 luma / 8
       chroma columns of each neighbour's strip copied to this strip's
       device (the JAX all_gather + one-hot select);
-  per strip: deblocking and SAO (K3) on the halo-extended strip, the
-      deblocking metadata planned from the global CTB tables
-      (ops/filter_plan.py xoff) and K3 reading them on the global CTB
-      grid, then the crop;
+  per strip: deblocking (K6) and SAO (K3) on the halo-extended strip,
+      both reading the global CTB tables at the strip's xoff, then the
+      crop;
   reassembly: each strip's valid columns written into the output slot
       of every DPB replica (the JAX all_gather into the replicated DPB).
 
@@ -44,8 +43,7 @@ from .. import telemetry
 
 from ..convert import plan_from_numpy
 from ..frame_program import _scatter_residual_slots, mc_inputs
-from ..ops.deblock import deblock_chroma_pass, deblock_luma_pass
-from ..ops.filter_plan import plan_deblock_device
+from ..ops.kernels.deblock import deblock_frame
 from ..ops.kernels.mc_filter import mc_predict
 from ..ops.kernels.sao_filter import sao_ctb
 from ..ops.mc_tile import build_tables
@@ -229,16 +227,10 @@ def _strip_filter(t, Ye, Cbe, Cre, x0, cfg, Ws):
     to its (H, Ws) / (H/2, Ws/2) columns."""
     bd = cfg.bitdepth
     xoff = x0 - HALO_Y
-    with telemetry.span("deblock"):
-        lm, cm = plan_deblock_device(t, cfg.fcfg, xoff)
-        for vi, vertical in enumerate((True, False)):
-            Ye = deblock_luma_pass(Ye, *lm[vi], vertical=vertical,
-                                   bitdepth=bd)
-            act, tc, p_off, q_off = cm[vi]
-            Cbe = deblock_chroma_pass(Cbe, act[0], tc[0], p_off, q_off,
-                                      vertical=vertical, bitdepth=bd)
-            Cre = deblock_chroma_pass(Cre, act[1], tc[1], p_off, q_off,
-                                      vertical=vertical, bitdepth=bd)
+    with telemetry.span("deblock") as sp:
+        n = deblock_frame.launches
+        Ye, Cbe, Cre = deblock_frame(Ye, Cbe, Cre, t, cfg.fcfg, bd, xoff)
+        sp.n = deblock_frame.launches - n
     if cfg.sao_enabled:
         with telemetry.span("sao"):
             Ye, Cbe, Cre = (sao_ctb(P, t, cfg.scfg, ci, xoff, bitdepth=bd)

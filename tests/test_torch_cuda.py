@@ -160,6 +160,225 @@ def test_k3_random_matches_plain(cuda, xoff):
     _k3_check(views, g, cfg, xoff, 10, "views")
 
 
+def _dbk_inputs(name, picks, **kw):
+    """Decode `name` on the card with the three callers of K6 recorded
+    (the frame program "frame", the tile strips "strip", the hybrid path
+    "hybrid"): {(route, i): (planes, grids, fcfg, bitdepth, xoff)}, copies
+    of what the route's i-th call received, for each (route, i) in
+    `picks`, or for the first `picks` calls of every route if it is an
+    int. kw goes to decode_stream_native."""
+    import libde265_tpu_torch.frame_program as FP
+    import libde265_tpu_torch.ops.filters_fused as FF
+    import libde265_tpu_torch.parallel.tile_shard as TS
+    from libde265_tpu_torch.api import decode_stream_native
+    from libde265_tpu_torch.ops.kernels import deblock as k
+    got, count = {}, {}
+
+    def recorder(route):
+        def rec(Y, Cb, Cr, t, fcfg, bitdepth, xoff=0):
+            i = count[route] = count.get(route, -1) + 1
+            if (route, i) in picks if not isinstance(picks, int) \
+                    else i < picks:
+                got[(route, i)] = ([P.clone() for P in (Y, Cb, Cr)],
+                                   {g: t[g].clone() for g in k.GRIDS},
+                                   fcfg, bitdepth, xoff)
+            return k.deblock_frame(Y, Cb, Cr, t, fcfg, bitdepth, xoff)
+        rec.launches = 0
+        return rec
+    with pytest.MonkeyPatch.context() as mp:
+        for route, mod in (("frame", FP), ("strip", TS), ("hybrid", FF)):
+            mp.setattr(mod, "deblock_frame", recorder(route))
+        with open(os.path.join(DATA, name + ".bin"), "rb") as f:
+            decode_stream_native(f.read(), device="cuda", **kw)
+    return got
+
+
+def _k6_check(planes, g, fcfg, bitdepth, xoff, what):
+    """K6 (two launches, in place) against deblock_frame_plain on copies
+    of the same card tensors, every plane exact. Returns the samples the
+    filter changed, per plane."""
+    from libde265_tpu_torch.ops.kernels import deblock as k
+    want = k.deblock_frame_plain(*(P.clone() for P in planes), g, fcfg,
+                                 bitdepth, xoff)
+    got = [P.clone() for P in planes]
+    n = k.deblock_frame.launches
+    out = k.deblock_frame(*got, g, fcfg, bitdepth, xoff)
+    assert k.deblock_frame.launches == n + 2
+    assert all(o is P for o, P in zip(out, got))            # in place
+    torch.cuda.synchronize()
+    nplanes = 3 if fcfg[2] else 1
+    for ci in range(nplanes):
+        assert torch.equal(got[ci], want[ci]), \
+            (what, ci, int((got[ci] != want[ci]).sum()))
+    return [int((want[ci] != planes[ci]).sum()) for ci in range(nplanes)]
+
+
+@pytest.mark.parametrize("name,picks,kw", [
+    ("ld4k_light", (("frame", 0), ("frame", 1)), {}),
+    ("ldb4k_main10", (("frame", 1),), {}),
+    ("gop1080p", (("frame", 0),), {}),
+    ("p_tiles4_1080p_mv", (("strip", 1),),
+     {"tile_devices": ["cuda:0"] * 4})])
+def test_k6_stream_matches_plain(cuda, name, picks, kw):
+    """K6 on the real grids and pre-deblocking planes of an ld4k_light
+    IDR and P picture, an ldb4k_main10 B picture (10 bits, bi-prediction:
+    the two-MV bS rule), a gop1080p IDR and strip 1 of p_tiles4_1080p_mv's
+    first P frame (xoff 432, halo-extended uint8 grids)."""
+    got = _dbk_inputs(name, picks, **kw)
+    assert sorted(got) == sorted(picks)
+    for key, (planes, g, fcfg, bd, xoff) in got.items():
+        if key[0] == "strip":
+            assert xoff == 432 and g["off"].dtype == torch.uint8
+        if name == "ldb4k_main10":
+            assert bd == 10 and bool((g["pf"].sum(-1) == 2).any())
+        changed = _k6_check(planes, g, fcfg, bd, xoff, (name, key))
+        # chroma filters only bS 2 (intra) edges: inter pictures may have
+        # none
+        assert changed[0] and (all(changed) or key[1] > 0), \
+            (name, key, changed)
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("rext_422_filters", {}), ("rext_444_filters", {}),
+    ("rext_mono_filters", {}), ("adv_pcm_mono", {}), ("p_pcm", {}),
+    ("p_pcm_nolf", {}), ("p_tqbypass", {}), ("p_tiles_nolf", {}),
+    ("p_tiles2_mv_nolf", {"tile_devices": ["cuda:0"] * 2}),
+    ("p_mixedlf", {}), ("rxt_cqo", {})])
+def test_k6_vectors_match_plain(cuda, name, kw):
+    """K6 on the first three calls of each route while small vectors
+    decode on the card: 4:2:2, 4:4:4 and monochrome, pcm blocks (with the
+    SPS's pcm_loop_filter_disabled_flag in p_pcm_nolf), transquant bypass,
+    tile-boundary filtering off (p_tiles_nolf, and p_tiles2_mv_nolf's
+    strips), a slice with deblocking disabled beside one with it on
+    (p_mixedlf), and the hybrid path (rxt_cqo). No committed vector codes
+    nonzero slice beta / tc offsets: the synthetic cases below do."""
+    got = _dbk_inputs(name, 3, **kw)
+    assert got
+    if kw:
+        assert any(r == "strip" for r, _ in got)
+    if name == "rxt_cqo":
+        assert any(r == "hybrid" for r, _ in got)
+    for key, (planes, g, fcfg, bd, xoff) in got.items():
+        _k6_check(planes, g, fcfg, bd, xoff, (name, key))
+
+
+def _dbk_case(seed, H, W, chroma_fmt, bitdepth, xoff=0, log2ctb=5,
+              narrow=False, Wpic=None):
+    """Seeded inputs of K6 (numpy): piecewise-smooth planes (8x8 blocks of
+    a level with flat, gentle or textured noise, steps between
+    neighbours, a ramp) so that both filters and every decision are
+    taken; random grids with many blocks copying their left or upper
+    neighbour's motion (bS 0 through the motion rule), some of those
+    nudged by up to 4, some with their lists swapped or both lists on one
+    picture; 4 slice rows with random disable flags and beta / tc offsets
+    in -6..6; random CTB-boundary permissions, pcm / bypass blocks and
+    chroma QP offsets. narrow: the strips' and the hybrid path's dtypes
+    (uint8 grids, int16 motion, QPs down to -6 * (bitdepth - 8)). With
+    xoff the planes are a strip of a Wpic-wide picture whose first column
+    sits at global luma x = xoff. Returns (planes, grids, fcfg)."""
+    rng = np.random.RandomState(seed)
+    gh, gw = H // 4, W // 4
+    Wpic = Wpic or W
+    ctb = 1 << log2ctb
+    nctby, nctbx = -(-H // ctb), -(-Wpic // ctb)
+    S = 4
+    i4 = np.uint8 if narrow else np.int32
+    mvt = np.int16 if narrow else np.int32
+
+    def plane(h, w, bs):
+        nb = (-(-h // bs), -(-w // bs))
+        lvl = rng.randint(0, 1 << bitdepth, nb)
+        amp = rng.choice([0, 0, 1, 2, 4, 16, 1 << (bitdepth - 3)], nb)
+        step = rng.randint(-6, 7, nb) << (bitdepth - 8)
+        lvl = np.where(rng.rand(*nb) < 0.6,
+                       np.roll(lvl, 1, axis=1) + step, lvl)
+        one = np.ones((bs, bs), np.int64)
+        base = np.kron(lvl, one)[:h, :w]
+        noise = (rng.rand(h, w) * 2 - 1) * np.kron(amp, one)[:h, :w]
+        ramp = np.arange(w)[None, :] * rng.randint(0, 3) \
+            + np.arange(h)[:, None] * rng.randint(0, 3)
+        return np.clip(base + noise + ramp, 0, (1 << bitdepth) - 1) \
+            .astype(np.int32)
+    subw = 2 if chroma_fmt in (1, 2) else 1
+    subh = 2 if chroma_fmt == 1 else 1
+    planes = [plane(H, W, 8)]
+    planes += [plane(H // subh, W // subw, 4) if chroma_fmt
+               else np.zeros((1, 128), np.int32) for _ in range(2)]
+    g = {"pm": rng.choice([0, 0, 0, 1, 2], (gh, gw)).astype(i4),
+         "cbf": (rng.rand(gh, gw) < 0.3).astype(i4),
+         "tucb": rng.randint(0, 4, (gh, gw)).astype(i4),
+         "edgeall": np.where(rng.rand(gh, gw) < 0.85, 3,
+                             rng.randint(0, 3, (gh, gw))).astype(i4),
+         "qp": rng.randint(-6 * (bitdepth - 8) if narrow else 10, 52,
+                           (gh, gw)).astype(np.int8),
+         "off": (rng.rand(gh, gw) < 0.08).astype(i4),
+         "pf": rng.randint(0, 2, (gh, gw, 2)).astype(i4),
+         "mv": rng.randint(-9, 10, (gh, gw, 2, 2)).astype(mvt),
+         "poc": rng.randint(0, 3, (gh, gw, 2)).astype(mvt),
+         "sidx": rng.randint(0, S, (nctby, nctbx)).astype(np.int32),
+         "allow_v": rng.rand(nctby, nctbx) < 0.7,
+         "allow_h": rng.rand(nctby, nctbx) < 0.7,
+         "sh_disable": (rng.rand(S) < 0.25).astype(np.int32),
+         "sh_beta": rng.randint(-6, 7, S).astype(np.int32),
+         "sh_tc": rng.randint(-6, 7, S).astype(np.int32)}
+    motion = (g["pf"], g["mv"], g["poc"])
+    for axis, share in ((1, 0.4), (0, 0.3)):
+        cp = rng.rand(gh, gw) < share
+        for j in range(1, gw if axis else gh):
+            for a in motion:
+                if axis:
+                    a[cp[:, j], j] = a[cp[:, j], j - 1]
+                else:
+                    a[j, cp[j]] = a[j - 1, cp[j]]
+    nudge = rng.rand(gh, gw) < 0.3
+    g["mv"][nudge] += rng.randint(-4, 5, (int(nudge.sum()), 2, 2)) \
+        .astype(mvt)
+    sw = rng.rand(gh, gw) < 0.15
+    for a in motion:
+        a[sw] = a[sw][:, ::-1].copy()
+    dup = rng.rand(gh, gw) < 0.2
+    g["poc"][dup, 1] = g["poc"][dup, 0]
+    fcfg = (log2ctb, False, chroma_fmt, bitdepth, bitdepth,
+            int(rng.randint(-4, 5)), int(rng.randint(-4, 5)), H, Wpic)
+    return planes, g, fcfg
+
+
+# (seed, H, W, chroma format, bit depth, xoff, log2 CTB, narrow, Wpic)
+DBK_CASES = [(0, 64, 96, 1, 8, 0, 5, False, None),
+             (1, 48, 80, 1, 12, 0, 4, False, None),
+             (2, 64, 72, 2, 10, 0, 4, True, None),
+             (3, 40, 56, 3, 8, 0, 4, True, None),
+             (4, 64, 64, 0, 12, 0, 6, False, None),
+             (5, 64, 96, 1, 8, -16, 5, True, 96),
+             (6, 64, 80, 1, 10, 112, 5, True, 136),
+             (7, 56, 104, 3, 12, 0, 5, False, None),
+             (8, 72, 84, 2, 8, 0, 4, False, None)]
+
+
+@pytest.mark.parametrize("case", DBK_CASES)
+def test_k6_synthetic_matches_plain(cuda, case):
+    """K6 on seeded synthetic planes and grids (_dbk_case) at 8, 10 and
+    12 bits, every chroma format, CTBs of 16, 32 and 64, widths that are
+    not multiples of 8 (84: a 4:2:2 horizontal chroma edge beyond the
+    last luma one), the first strip of a tile column (xoff -16) and one
+    that runs past the picture's last CTB column (xoff 112 in a 136-wide
+    picture); then the same planes as column views of wider tensors
+    (pitch != width, not 16-byte aligned)."""
+    seed, H, W, fmt, bd, xoff, l2, narrow, wpic = case
+    planes, g, fcfg = _dbk_case(seed, H, W, fmt, bd, xoff, l2, narrow, wpic)
+    P = [torch.as_tensor(x, device=cuda) for x in planes]
+    g = {k: torch.as_tensor(v, device=cuda) for k, v in g.items()}
+    changed = _k6_check(P, g, fcfg, bd, xoff, case)
+    assert all(changed), (case, changed)
+    views = []
+    for x in P:
+        wide = torch.zeros((x.shape[0], x.shape[1] + 3), dtype=x.dtype,
+                           device=cuda)
+        wide[:, 1:1 + x.shape[1]] = x
+        views.append(wide[:, 1:1 + x.shape[1]])
+    _k6_check(views, g, fcfg, bd, xoff, (case, "views"))
+
+
 @pytest.mark.parametrize("name,holes", [("intra_104x72_q26", False),
                                         ("intra_104x72_q26", True),
                                         ("p_cif_mixed", False),

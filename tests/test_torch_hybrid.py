@@ -200,18 +200,21 @@ def test_intra_levels_match_jax(jax_frames):
 
 
 def test_loop_filters_match_jax(jax_frames):
-    """Stage 4: deblocking from the device planner, then SAO through K3's
-    plain version, from the JAX stage's input."""
+    """Stage 4: deblocking through K6's plain version (the device
+    planner and the plain passes), then SAO through K3's, from the JAX
+    stage's input."""
     from libde265_tpu_torch.device_decode import loop_filters
+    from libde265_tpu_torch.ops.kernels.deblock import deblock_frame
     from libde265_tpu_torch.ops.kernels.sao_filter import sao_ctb
     _, _, rec = jax_frames
-    n3 = sao_ctb.launches
+    n3, n6 = sao_ctb.launches, deblock_frame.launches
     for fid, r in rec.items():
         plan = r["plan"]
         got = loop_filters(plan, None, _t(r["pre_filter"]),
                            plan.sps.BitDepthY)
         _eq(got, r["final"], f"filters frame {fid}")
-    assert sao_ctb.launches == n3          # CPU tensors: no launch
+    # CPU tensors: no launch
+    assert (sao_ctb.launches, deblock_frame.launches) == (n3, n6)
 
 
 def test_whole_frames_match_jax(jax_frames):
